@@ -1,0 +1,165 @@
+"""Pixel decoder: multi-scale deformable-attention encoder + FPN
+(counterpart of `rgbdseg_tpu/models/pixel_decoder.py`).
+
+4 channels-last backbone maps -> (mask_features at stride 4, three maps at
+strides 32/16/8). The per-level sampling goes through kernel K1
+(`ops.kernels.deformable.deform_sample_level`) at every level. LayerNorm and
+GroupNorm use flax's default eps 1e-6, not torch's 1e-5.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops.kernels.deformable import deform_sample_level
+from ..ops.resize import resize_bilinear
+from .position import sine_position_embedding
+
+FLAX_EPS = 1e-6
+
+
+def offset_bias_grid(num_heads: int, n_levels: int, n_points: int) -> np.ndarray:
+    """Deformable-DETR sampling-offset bias: per-head unit directions scaled by point index."""
+    thetas = np.arange(num_heads, dtype=np.float64) * (2.0 * np.pi / num_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], -1)
+    grid = grid / np.abs(grid).max(-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    for i in range(n_points):
+        grid[:, :, i, :] *= i + 1
+    return grid.reshape(-1).astype(np.float32)
+
+
+class DeformableAttention(nn.Module):
+    """Multi-scale deformable self-attention (n_levels levels, n_points points)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d, nh = cfg.feature_size, cfg.num_attention_heads
+        nl, npts = cfg.num_feature_levels, cfg.deformable_points
+        self.nh, self.nl, self.npts = nh, nl, npts
+        self.value_proj = nn.Linear(d, d)
+        self.sampling_offsets = nn.Linear(d, nh * nl * npts * 2)
+        self.attention_weights = nn.Linear(d, nh * nl * npts)
+        self.output_proj = nn.Linear(d, d)
+
+    def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes):
+        nh, npts = self.nh, self.npts
+        nl = len(spatial_shapes)
+        b, l, d = hidden_states.shape
+        hd = d // nh
+        with_pos = hidden_states + position_embeddings
+        value = self.value_proj(hidden_states).reshape(b, l, nh, hd)
+        offsets = self.sampling_offsets(with_pos).reshape(b, l, nh, nl, npts, 2)
+        weights = torch.softmax(self.attention_weights(with_pos).reshape(b, l, nh, nl * npts), dim=-1)
+        weights = weights.reshape(b, l, nh, nl, npts)
+
+        # Location arithmetic in f32: pixel coordinates reach O(100).
+        normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32,
+                                  device=hidden_states.device)
+        locations = (
+            reference_points.float()[:, :, None, :, None, :]
+            + offsets.float() / normalizer[None, None, None, :, None, :]
+        )  # (B, L, nh, nl, P, 2) normalized (x, y)
+
+        level_start = np.cumsum([0] + [h * w for h, w in spatial_shapes])
+        wt = weights.permute(0, 2, 1, 3, 4)  # (B, nh, L, nl, P)
+        out = torch.zeros(b, nh, l, hd, dtype=hidden_states.dtype, device=hidden_states.device)
+        for lvl, (h, w) in enumerate(spatial_shapes):
+            v = value[:, level_start[lvl] : level_start[lvl + 1]]  # (B, hw, nh, hd)
+            vbh = v.permute(0, 2, 1, 3).reshape(b * nh, h * w, hd).contiguous()
+            coords = locations[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(b * nh, l, npts, 2)
+            gx = (coords[..., 0] * w - 0.5).contiguous()
+            gy = (coords[..., 1] * h - 0.5).contiguous()
+            aw = wt[:, :, :, lvl].reshape(b * nh, l, npts).float().contiguous()
+            sampled = deform_sample_level(gx, gy, aw, vbh, h, w)
+            out = out + sampled.reshape(b, nh, l, hd).to(out.dtype)
+        out = out.permute(0, 2, 1, 3).reshape(b, l, d)
+        return self.output_proj(out)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.feature_size
+        self.self_attn = DeformableAttention(cfg)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
+        self.fc1 = nn.Linear(d, cfg.encoder_feedforward_dim)
+        self.fc2 = nn.Linear(cfg.encoder_feedforward_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
+
+    def forward(self, x, pos, reference_points, spatial_shapes):
+        x = self.self_attn_layer_norm(x + self.self_attn(x, pos, reference_points, spatial_shapes))
+        return self.final_layer_norm(x + self.fc2(F.relu(self.fc1(x))))
+
+
+def reference_points_for_shapes(spatial_shapes, device=None) -> torch.Tensor:
+    """(L_total, 2) normalized (x, y) half-pixel reference points."""
+    pts = []
+    for h, w in spatial_shapes:
+        ry = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+        rx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+        gy, gx = torch.meshgrid(ry, rx, indexing="ij")
+        pts.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
+    return torch.cat(pts, dim=0)
+
+
+class PixelDecoder(nn.Module):
+    """features (4 channels-last maps, low -> high stride) -> (mask_features, 3 multi-scale maps)."""
+
+    def __init__(self, cfg: ModelConfig, in_channels: tuple[int, ...]):
+        super().__init__()
+        self.cfg = cfg
+        d, nl = cfg.feature_size, cfg.num_feature_levels
+        self.level_embed = nn.Parameter(torch.zeros(nl, d))
+        for i, c in enumerate(in_channels[::-1][:nl]):
+            self.add_module(f"input_proj{i}_conv", nn.Conv2d(c, d, 1))
+            self.add_module(f"input_proj{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
+        for li in range(cfg.encoder_layers):
+            self.add_module(f"layer{li}", EncoderLayer(cfg))
+        stride = min(cfg.feature_strides[-nl:])
+        self.num_fpn = int(np.log2(stride) - np.log2(cfg.common_stride))
+        for i, c in enumerate(list(in_channels[: self.num_fpn])[::-1]):
+            self.add_module(f"adapter{i}_conv", nn.Conv2d(c, d, 1, bias=False))
+            self.add_module(f"adapter{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
+            self.add_module(f"fpn{i}_conv", nn.Conv2d(d, d, 3, padding=1, bias=False))
+            self.add_module(f"fpn{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
+        self.mask_projection = nn.Conv2d(d, cfg.mask_feature_size, 1)
+
+    def forward(self, features):
+        cfg = self.cfg
+        d, nl = cfg.feature_size, cfg.num_feature_levels
+        embeds, poses, shapes = [], [], []
+        for i, f in enumerate(features[::-1][:nl]):  # [s32, s16, s8]
+            x = getattr(self, f"input_proj{i}_conv")(f.permute(0, 3, 1, 2))
+            x = getattr(self, f"input_proj{i}_norm")(x).permute(0, 2, 3, 1)
+            b, h, w, _ = x.shape
+            embeds.append(x.reshape(b, h * w, d))
+            pos = sine_position_embedding(h, w, d // 2, device=x.device).to(x.dtype)
+            poses.append(pos.reshape(1, h * w, d) + self.level_embed[i][None, None])
+            shapes.append((h, w))
+
+        x = torch.cat(embeds, dim=1)
+        pos = torch.cat(poses, dim=1)
+        ref = reference_points_for_shapes(shapes, x.device)[None, :, None, :].expand(1, -1, nl, 2)
+        for li in range(cfg.encoder_layers):
+            x = getattr(self, f"layer{li}")(x, pos, ref, shapes)
+
+        outputs, start = [], 0
+        b = x.shape[0]
+        for h, w in shapes:
+            outputs.append(x[:, start : start + h * w].reshape(b, h, w, d))
+            start += h * w
+
+        for i, f in enumerate(list(features[: self.num_fpn])[::-1]):
+            lateral = getattr(self, f"adapter{i}_norm")(getattr(self, f"adapter{i}_conv")(f.permute(0, 3, 1, 2)))
+            lateral = lateral.permute(0, 2, 3, 1)
+            y = lateral + resize_bilinear(outputs[-1], tuple(lateral.shape[1:3]))
+            y = getattr(self, f"fpn{i}_norm")(getattr(self, f"fpn{i}_conv")(y.permute(0, 3, 1, 2)))
+            outputs.append(F.relu(y).permute(0, 2, 3, 1))
+
+        mask_features = self.mask_projection(outputs[-1].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return mask_features, tuple(outputs[:nl])

@@ -1,0 +1,109 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package, its
+entry points run on the card unless asked otherwise, the kernel wrappers take
+the plain versions only for CPU tensors without counting a launch, and the JAX
+package's variables load into the port's modules with `strict=True`."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rgbdseg_tpu.config import ModelConfig as JConfig
+from rgbdseg_tpu.models.mask2former import Mask2FormerRGBD as JModel
+from rgbdseg_torch import versions as TV
+from rgbdseg_torch.config import ModelConfig
+from rgbdseg_torch.inference import predictor as tpredictor
+from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+from rgbdseg_torch.ops.kernels import LAUNCHES, reset_launches
+from rgbdseg_torch.ops.kernels.deformable import deform_sample_level, deform_sample_level_plain
+from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
+from rgbdseg_torch.utils.weights import from_flax
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL"}
+PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module", "__import__", "importorskip",
+        ):
+            roots.update(a.value.split(".")[0] for a in node.args[:1] if isinstance(a, ast.Constant))
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_forbidden(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpredictor.Predictor(ModelConfig.tiny(version="0.4.0"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpredictor.Predictor(ModelConfig.tiny(version="0.4.0"), device="cuda")
+    assert tpredictor.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
+    """No result line and a non-zero exit: alone in a directory, and (here,
+    without CUDA) in the checkout."""
+    (tmp_path / "chip_smoke.py").write_bytes((REPO / "chip_smoke.py").read_bytes())
+    runs = [subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True)]
+    if not torch.cuda.is_available():
+        runs.append(subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True))
+    for r in runs:
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
+
+
+def test_cpu_wrappers_take_plain_version_without_launching():
+    rng = np.random.RandomState(0)
+    gx, gy = (torch.from_numpy(rng.uniform(-2, 25, (2, 50, 4)).astype(np.float32)) for _ in range(2))
+    aw = torch.softmax(torch.from_numpy(rng.randn(2, 50, 4).astype(np.float32)), -1)
+    v = torch.from_numpy(rng.randn(2, 17 * 23, 32).astype(np.float32))
+    q, k, vv = (torch.from_numpy(rng.randn(2, 4, n, 32).astype(np.float32)) for n in (20, 64, 64))
+    m = torch.from_numpy(rng.randn(2, 20, 64).astype(np.float32))
+    m[:, 0] = -1.0
+    ab = (m < 0).all(-1)
+    reset_launches()
+    torch.testing.assert_close(
+        deform_sample_level(gx, gy, aw, v, 17, 23), deform_sample_level_plain(gx, gy, aw, v, 17, 23)
+    )
+    torch.testing.assert_close(
+        masked_cross_attention(q, k, vv, m, ab), masked_cross_attention_plain(q, k, vv, m, ab)
+    )
+    assert LAUNCHES == {"deformable": 0, "masked_attention": 0}
+
+
+@pytest.mark.parametrize("version", ["0.0.0", "0.4.0"])
+def test_from_flax_loads_strict(version):
+    """Every JAX variable maps onto a port parameter or buffer of the same
+    shape, and none is missing (shapes from tracing the JAX init, no compile)."""
+    ch = 10 if version == "0.4.0" else 3
+    shapes = jax.eval_shape(
+        JModel(JConfig.tiny(num_labels=3, version=version)).init,
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, ch), jnp.float32),
+    )
+    v = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    model = Mask2FormerRGBD(ModelConfig.tiny(num_labels=3, version=version))
+    model.load_state_dict(from_flax(v["params"], v.get("batch_stats")), strict=True)
+
+
+@pytest.mark.parametrize("version", sorted(set(TV.REGISTRY) - set(TV.BUILDABLE)))
+def test_unported_versions_raise(version):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Mask2FormerRGBD(ModelConfig.tiny(version=version))
