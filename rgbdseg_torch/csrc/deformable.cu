@@ -1,26 +1,46 @@
-// Multi-scale deformable-attention sampling for one level (kernel K1).
+// Multi-scale deformable-attention sampling over all levels (kernel K1).
 //
-//   out[bh, l, :] = sum_p aw[bh, l, p] * bilinear_zeros(V[bh], gy[bh, l, p], gx[bh, l, p])
+//   out[b, l, h, :] = sum_lvl sum_p aw[b, l, h, lvl, p]
+//                       * bilinear_zeros(V_lvl[b, :, :, h, :], loc[b, l, h, lvl, p])
 //
-// gx, gy are pixel coordinates (x * w - 0.5, y * h - 0.5); V is (BH, h*w, hd)
-// row-major over (y, x); out is (BH, L, hd) float32.
+// value (B, L_total, nh, hd) as value_proj emits it, level lvl occupying rows
+// [start_lvl, start_lvl + h_lvl * w_lvl) in (y, x) raster order; loc (B, L, nh,
+// nl, P, 2) float32 (x, y); aw (B, L, nh, nl, P) float32; out (B, L, nh * hd)
+// float32, the input of output_proj. With `normalized`, loc is in [0, 1] and the
+// kernel converts it to pixels as x * w - 0.5 (rounded as two separate float32
+// operations, as the plain version computes it); otherwise loc is already in
+// pixels (the per-level entry, which passes the JAX per-level gx, gy).
 //
 // Replaces the TPU kernels rgbdseg_tpu/ops/kernels/deformable.py::tent_sample_level
-// (_tent_kernel) and ::tent_sample_level_band (_tent_band_kernel). Those build
-// the dense "tent" matrix P[l, y*w+x] and contract it with V on the MXU, because
-// the TPU gathers slowly. On Hopper a gather is cheap, so this kernel reads the
-// <= 4 in-bounds bilinear corners of each point directly. Bilinear weights with
-// zeros padding are exactly the tent relu(1 - |g - x|) at the two cells around
-// g, including coordinates that are exact integers (the far corner gets weight 0).
+// (_tent_kernel) and ::tent_sample_level_band (_tent_band_kernel), and the level
+// loop around them (rgbdseg_tpu/models/pixel_decoder.py, DeformableAttention).
+// Those build the dense "tent" matrix P[l, y*w+x] and contract it with V on the
+// MXU, because the TPU gathers slowly. On Hopper a gather is cheap, so this kernel
+// reads the <= 4 in-bounds bilinear corners of each point directly. Bilinear
+// weights with zeros padding are exactly the tent relu(1 - |g - x|) at the two
+// cells around g, including coordinates that are exact integers (the far corner
+// gets weight 0). A corner whose weight is exactly 0 adds exactly 0, so it is not
+// loaded.
 //
-// Bound on the H100: memory. Per call it must read gx, gy, aw (3 * BH*L*P f32)
-// and V once and write out (BH*L*hd f32): about 14 MB at the 60x80 level of a
-// 480x640 frame, ~4 us at 3.35 TB/s, against ~0.05 GFLOP of f32 FMAs (<1 us).
-// Design: one warp per query (bh, l); the lanes run over the head channels, so
-// every corner read is one coalesced 128-byte row of V (hd = 32, f32). The
-// per-point coordinates and weights are warp-uniform loads. V's rows are read
-// again by neighbouring queries and are served from L2. Accumulation is f32;
-// V may be float32 or bfloat16.
+// Bound on the H100: memory. One encoder layer at 480x640 (levels 15x20, 30x40,
+// 60x80; nh = 8, hd = 32, P = 4) must read V (6.45 MB), loc (4.84 MB) and aw
+// (2.42 MB) and write out (6.45 MB): ~20 MB, ~6 us at 3.35 TB/s. The per-layer
+// FMAs (< 0.1 GFLOP) are far below that.
+//
+// Design: one launch per encoder layer for all levels, on the layouts the layer
+// produces (no per-level permutes or copies around it). hd / 4 lanes own one
+// (query, head) pair, each lane a float4 of channels (8 lanes, 4 pairs per warp
+// at hd = 32), so every corner read is one coalesced 128-byte row of V. A block
+// takes 32 neighbouring queries of one head, which sample overlapping V rows
+// (queries arrive in raster order and sample a few pixels from their reference
+// point), so repeated rows come from L1 and L2. The per-point arithmetic is not
+// repeated on every lane of a pair: per level, each lane computes 4 * P / (hd / 4)
+// of the pair's corners (pixel index and weight, from its point's coordinates
+// and weight), the pair's lanes exchange them with width-(hd / 4) shuffles, and
+// each lane then issues all 4 * P corner loads of the level before any FMA. nl
+// and P are template constants. Accumulation is f32; V may be float32 or
+// bfloat16. At the in-model geometry it still moves about 10x the bytes of its
+// bound through L1 (each corner row is requested once per query that needs it).
 //
 // Points whose footprint lies wholly outside the map contribute zero and are
 // skipped before any float->int conversion (this also skips NaN coordinates).
@@ -31,82 +51,157 @@
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kMaxLevels = 3;
+constexpr int kThreads = 256;
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxChunks = 4;  // hd <= 128
+struct Levels {
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int start[kMaxLevels];
+};
 
-template <typename T>
-__global__ void deform_sample_level_kernel(
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ aw, const T* __restrict__ v,
-    float* __restrict__ out, int bh, int l, int npts, int h, int w, int hd) {
+__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T, int HD, int NL, int P>
+__global__ void __launch_bounds__(kThreads) deform_sample_kernel(
+    const T* __restrict__ value, const float* __restrict__ loc, const float* __restrict__ aw,
+    float* __restrict__ out, Levels lv, long long pairs, int nh, int nq, int ltot, int normalized) {
+  constexpr int kLanes = HD / 4;               // lanes per (query, head) pair
+  constexpr int kPairsPerWarp = 32 / kLanes;
+  constexpr int kCorners = 4 * P;              // bilinear corners per level
+  constexpr int kOwn = kCorners / kLanes;      // corners each lane computes
+  static_assert(kCorners % kLanes == 0 && kOwn <= 4, "a lane's corners must lie in one point");
   const int lane = threadIdx.x & 31;
-  const long long query = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (query >= (long long)bh * l) return;
-  const long long b = query / l;
-  const T* vb = v + b * (long long)h * w * hd;
-  const long long pbase = query * npts;
+  const int sub = lane % kLanes;
+  long long slot =
+      ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * kPairsPerWarp + lane / kLanes;
+  // Lanes past the last pair keep computing on it (the shuffles need the whole
+  // warp) and store nothing.
+  const bool live = slot < pairs;
+  slot = live ? slot : pairs - 1;
+  // Slots run over the queries of one (b, head) fastest: a block's pairs are
+  // neighbouring queries of one head, which sample overlapping V rows.
+  const long long bh = slot / nq;
+  const long long l = slot - bh * nq;
+  const int h = (int)(bh % nh);
+  const long long b = bh / nh;
+  const long long pr = (b * nq + l) * nh + h;  // the pair's index in loc, aw and out
+  const int c = sub * 4;  // this lane's channels
+  const long long pix = (long long)nh * HD;  // stride of one pixel in value
+  const T* vb = value + (b * ltot * nh + h) * HD + c;
+  const int p = sub * kOwn / 4;  // the point whose corners this lane computes
 
-  float acc[kMaxChunks];
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) acc[c] = 0.f;
-
-  for (int p = 0; p < npts; ++p) {
-    const float x = gx[pbase + p];
-    const float y = gy[pbase + p];
-    const float a = aw[pbase + p];
+  for (int lvl = 0; lvl < NL; ++lvl) {
+    const int hh = lv.h[lvl];
+    const int ww = lv.w[lvl];
+    // This lane's corners: weight and pixel index, 0 where the corner is out of
+    // bounds or has weight exactly 0.
+    const float2 g = __ldg(reinterpret_cast<const float2*>(loc) + (pr * NL + lvl) * P + p);
+    const float a = __ldg(aw + (pr * NL + lvl) * P + p);
+    float x = g.x, y = g.y;
+    if (normalized) {
+      x = __fsub_rn(__fmul_rn(x, (float)ww), 0.5f);
+      y = __fsub_rn(__fmul_rn(y, (float)hh), 0.5f);
+    }
     const float x0f = floorf(x);
     const float y0f = floorf(y);
-    if (!(x0f >= -1.f && x0f <= (float)(w - 1) && y0f >= -1.f && y0f <= (float)(h - 1))) continue;
+    const bool any = x0f >= -1.f && x0f <= (float)(ww - 1) && y0f >= -1.f && y0f <= (float)(hh - 1);
     const float fx = x - x0f;
     const float fy = y - y0f;
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
+    const int x0 = any ? (int)x0f : 0;
+    const int y0 = any ? (int)y0f : 0;
+    float own_w[kOwn];
+    int own_i[kOwn];
 #pragma unroll
-    for (int corner = 0; corner < 4; ++corner) {
+    for (int j = 0; j < kOwn; ++j) {
+      const int corner = (sub * kOwn + j) & 3;
       const int dy = corner >> 1;
       const int dx = corner & 1;
       const int yy = y0 + dy;
       const int xx = x0 + dx;
-      if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
       const float wgt = a * (dy ? fy : 1.f - fy) * (dx ? fx : 1.f - fx);
-      const T* row = vb + ((long long)yy * w + xx) * hd;
+      const bool ok = any && yy >= 0 && yy < hh && xx >= 0 && xx < ww && wgt != 0.f;
+      own_w[j] = ok ? wgt : 0.f;
+      own_i[j] = ok ? yy * ww + xx : 0;
+    }
+    // Every corner of the pair, from its owner lane; all loads before the FMAs.
+    const T* vl = vb + (long long)lv.start[lvl] * pix;
+    float wt[kCorners];
+    float4 val[kCorners];
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int d = lane + 32 * c;
-        if (d < hd) acc[c] += wgt * to_f32(row[d]);
-      }
+    for (int k = 0; k < kCorners; ++k) {
+      wt[k] = __shfl_sync(0xffffffffu, own_w[k % kOwn], k / kOwn, kLanes);
+      const int idx = __shfl_sync(0xffffffffu, own_i[k % kOwn], k / kOwn, kLanes);
+      val[k] = wt[k] != 0.f ? ldg4(vl + idx * pix) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kCorners; ++k) {
+      acc.x = fmaf(wt[k], val[k].x, acc.x);
+      acc.y = fmaf(wt[k], val[k].y, acc.y);
+      acc.z = fmaf(wt[k], val[k].z, acc.z);
+      acc.w = fmaf(wt[k], val[k].w, acc.w);
     }
   }
-  float* o = out + query * hd;
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int d = lane + 32 * c;
-    if (d < hd) o[d] = acc[c];
+  if (live) *reinterpret_cast<float4*>(out + pr * HD + c) = acc;
+}
+
+template <typename T, int HD, int NL>
+int launch_levels(const void* value, const void* loc, const void* aw, void* out, const Levels& lv,
+                  long long pairs, int nh, int nq, int ltot, int normalized, cudaStream_t s) {
+  constexpr int kPairsPerBlock = kThreads / 32 * (32 / (HD / 4));
+  const unsigned grid = (unsigned)((pairs + kPairsPerBlock - 1) / kPairsPerBlock);
+  deform_sample_kernel<T, HD, NL, 4><<<grid, kThreads, 0, s>>>(
+      (const T*)value, (const float*)loc, (const float*)aw, (float*)out, lv, pairs, nh, nq, ltot, normalized);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int dispatch_nl(int nl, const void* value, const void* loc, const void* aw, void* out, const Levels& lv,
+                long long pairs, int nh, int nq, int ltot, int normalized, cudaStream_t s) {
+  switch (nl) {  // the per-level entry and the model's three levels
+    case 1: return launch_levels<T, HD, 1>(value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
+    case 3: return launch_levels<T, HD, 3>(value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dispatch_hd(int hd, int nl, const void* value, const void* loc, const void* aw, void* out,
+                const Levels& lv, long long pairs, int nh, int nq, int ltot, int normalized, cudaStream_t s) {
+  switch (hd) {
+    case 16: return dispatch_nl<T, 16>(nl, value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
+    case 32: return dispatch_nl<T, 32>(nl, value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int rgbd_deform_sample_level(
-    const void* gx, const void* gy, const void* aw, const void* v, void* out,
-    int bh, int l, int npts, int h, int w, int hd, int v_bf16, void* stream) {
-  if (hd <= 0 || hd > 32 * kMaxChunks) return (int)cudaErrorInvalidValue;
-  const long long queries = (long long)bh * l;
-  if (queries == 0) return (int)cudaSuccess;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((unsigned)((queries + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  cudaStream_t s = (cudaStream_t)stream;
-  if (v_bf16) {
-    deform_sample_level_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const float*)gx, (const float*)gy, (const float*)aw, (const __nv_bfloat16*)v,
-        (float*)out, bh, l, npts, h, w, hd);
-  } else {
-    deform_sample_level_kernel<float><<<grid, block, 0, s>>>(
-        (const float*)gx, (const float*)gy, (const float*)aw, (const float*)v,
-        (float*)out, bh, l, npts, h, w, hd);
+// levels: nl triples (h, w, start) on the host; nl 1 or 3, P 4, hd 16 or 32.
+// All pointers must be 16-byte aligned.
+extern "C" int rgbd_deform_sample(
+    const void* value, const void* loc, const void* aw, void* out, const int* levels,
+    int b, int nq, int nh, int nl, int npts, int hd, int ltot, int normalized, int v_bf16, void* stream) {
+  if (nl < 1 || nl > kMaxLevels || npts != 4) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)value | (uintptr_t)loc | (uintptr_t)aw | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  Levels lv = {};
+  for (int i = 0; i < nl; ++i) {
+    lv.h[i] = levels[3 * i];
+    lv.w[i] = levels[3 * i + 1];
+    lv.start[i] = levels[3 * i + 2];
   }
-  return (int)cudaGetLastError();
+  const long long pairs = (long long)b * nq * nh;
+  if (pairs == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (v_bf16) return dispatch_hd<__nv_bfloat16>(hd, nl, value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
+  return dispatch_hd<float>(hd, nl, value, loc, aw, out, lv, pairs, nh, nq, ltot, normalized, s);
 }

@@ -1,4 +1,4 @@
-// Mask2Former masked cross-attention (kernel K3).
+// Mask2Former masked cross-attention (kernel K3), split over the keys.
 //
 //   out[b, h, q, :] = softmax_k(q . k + bias[b, q, k]) @ v
 //   bias = -1e9 where mask_logits[b, q, k] < 0 && !all_blocked[b, q], else 0
@@ -17,17 +17,39 @@
 // Invariant: every row has at least one key with bias 0, either because
 // all_blocked exempts the row or because some logit is >= 0. So the final
 // running max is a real score, every -1e9 entry's weight underflows to exactly 0,
-// and rows never divide by zero.
+// and rows never divide by zero. A split whose keys are all blocked for a row has
+// a partial max near -1e9; its weight exp(m_split - m_final) in the combine
+// underflows to exactly 0, so it adds exactly nothing.
 //
 // Bound on the H100: at Q=100, K=4800, hd=32, H=8 it reads ~12 MB (k, v and the
-// mask) and does ~0.5 GFLOP of f32 multiply-adds: ~7 us at the 67 TFLOP/s f32
-// (non-tensor) rate against ~3.6 us of memory, so operations bound it.
-// Design (right and simple first): one block per (b, h, tile of 8 queries), one
-// warp per query. Each key/value tile of 64 rows is staged in shared memory as
-// float32 (k padded to hd+1 columns so the lanes' dot products hit distinct
-// banks); each lane scores two keys, the warp reduces max and sum with shuffles,
-// and the lanes then accumulate p @ v over the head channels. The k/v tiles are
-// re-read from L2 once per query tile (13 times at Q=100). Accumulation is f32.
+// mask) and does ~0.25 GFLOP of multiply-adds for the unblocked pairs, so bytes
+// bound it (~4 us).
+//
+// Design. A call is TWO launches: the split kernel and the combine kernel.
+//  - Split kernel, grid (key splits, H, B * query tiles). A block owns every
+//    query of its (b, h) (up to 128, padded to 16 inside the kernel; more
+//    queries take more query tiles) and one contiguous chunk of whole 64-key
+//    tiles, so k and v are read once. The wrapper sizes the chunk so that the
+//    grid fills the card in one wave of two blocks per SM: at K=4800, 25 splits
+//    of 3 tiles, 200 blocks (38 splits of 2 tiles would need 1.15 waves).
+//  - k, v and mask tiles are staged with 16-byte cp.async (4-byte where K is
+//    not a multiple of 4), double-buffered.
+//  - The products run on the tensor cores as mma.sync m16n8k8 TF32 with the
+//    error-compensated split x = hi + lo (hi = tf32(x), lo = tf32(x - hi)) and
+//    three products hi*hi + hi*lo + lo*hi per step, which keeps the f32
+//    comparison with the plain version within 1e-5 (one TF32 product would
+//    not). A warp owns 16 query rows: its q fragments (already split) stay in
+//    registers for the whole kernel; per 64-key tile it computes the 16 x 64
+//    scores into accumulators, applies the mask there, takes the row max over
+//    the four lanes of a row with two shuffles, and feeds the probabilities
+//    straight from the score accumulators into p @ v as the A operand: the
+//    contraction over keys does not care about their order, so the B operand
+//    (v) is read with the keys permuted to match the accumulator layout
+//    (k-index t <-> key 2t, t + 4 <-> key 2t + 1 within each block of 8).
+//    Scores are kept in log2 units (q times log2(e)), so exp2 replaces exp.
+//  - Each block writes (running max, running sum, unnormalised accumulator) per
+//    row to a scratch tensor; the combine kernel (one warp per row) rescales by
+//    exp2(m_s - max_s m_s), sums over the splits and normalises.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,166 +58,363 @@
 namespace {
 
 constexpr float kNegInf = -1e9f;  // the JAX twin's additive mask value
+constexpr float kInit = -1e30f;   // running max before the first tile
+constexpr float kLog2e = 1.4426950408889634f;  // scores are kept in log2 units: exp2 is cheaper
 constexpr int kTileK = 64;
-constexpr int kWarps = 8;  // queries per block
+constexpr int kRowsPerWarp = 16;
+constexpr int kMaxRows = 128;  // query rows of one block
+constexpr int kMS = kTileK + 4;  // mask row stride (floats)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// cp.async with zero fill: copies `valid ? n : 0` bytes and zeroes the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
+
+// x = hi + lo with hi, lo in TF32 (round to nearest).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a @ b for one m16n8k8 step in about f32 precision: lo*hi + hi*lo + hi*hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
+                                           float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(32 * kWarps) masked_cross_attention_kernel(
+struct Layout {
+  static constexpr int kKS = HD + 16 / (int)sizeof(T);  // k/v row stride (elements)
+  static constexpr int kKVTile = kTileK * kKS;          // one k or v tile (elements)
+  static size_t bytes(int rows) { return (size_t)4 * kKVTile * sizeof(T) + (size_t)2 * rows * kMS * 4; }
+};
+
+// Two blocks per SM where the registers allow it (hd <= 32).
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kMaxRows / kRowsPerWarp, HD <= 32 ? 2 : 1) mca_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ mask, const uint8_t* __restrict__ all_blocked,
-    T* __restrict__ out, int nh, int nq, int nk) {
-  constexpr int kChunks = (HD + 31) / 32;
-  constexpr int kPerLane = kTileK / 32;
-  __shared__ float ks[kTileK][HD + 1];
-  __shared__ float vs[kTileK][HD];
-  __shared__ float ps[kWarps][kTileK];
+    float* __restrict__ part_o, float* __restrict__ part_ml,
+    int nh, int nq, int nk, int q_rows, int qtiles, int tiles_per_split, int splits, int mask_vec) {
+  using L = Layout<T, HD>;
+  constexpr int kSteps = HD / 8;  // m16n8k8 steps over hd (q.k) and n-tiles over hd (p.v)
+  constexpr int kChunks = HD * (int)sizeof(T) / 16;  // 16-byte chunks per k/v row
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.z;
-  const long long bh = (long long)b * nh + blockIdx.y;
-  const int qi = blockIdx.x * kWarps + warp;
-  const bool active = qi < nq;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kvs = reinterpret_cast<T*>(smem);
+  float* ms = reinterpret_cast<float*>(smem + (size_t)4 * L::kKVTile * sizeof(T));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // mma group: rows g and g + 8, b-operand column g
+  const int t = lane & 3;   // thread in group
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / qtiles;
+  const int q0 = (blockIdx.z - b * qtiles) * q_rows;
+  const long long bh = (long long)b * nh + h;
+  const int kbeg = split * tiles_per_split * kTileK;
+  const int kend = min(nk, kbeg + tiles_per_split * kTileK);
+  const int ntile = (kend - kbeg + kTileK - 1) / kTileK;
   const T* kb = k + bh * nk * HD;
   const T* vb = v + bh * nk * HD;
+  const float* mb = mask + (long long)b * nq * nk;
 
-  float qreg[HD];
-  bool exempt = false;
-  const float* mrow = mask;
-  if (active) {
-    const T* qrow = q + (bh * nq + qi) * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qreg[d] = to_f32(qrow[d]);
-    exempt = all_blocked[(long long)b * nq + qi] != 0;
-    mrow = mask + ((long long)b * nq + qi) * nk;
-  }
-
-  float m_run = -1e30f;
-  float l_run = 0.f;
-  float acc[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) acc[c] = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kTileK) {
-    for (int idx = threadIdx.x; idx < kTileK * HD; idx += blockDim.x) {
-      const int j = idx / HD;
-      const int d = idx - j * HD;
-      const int kj = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kj < nk) {
-        kv = to_f32(kb[(long long)kj * HD + d]);
-        vv = to_f32(vb[(long long)kj * HD + d]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
+  auto issue_tile = [&](int tile) {
+    const int k0 = kbeg + tile * kTileK;
+    const int buf = tile & 1;
+    T* kt = kvs + (size_t)(2 * buf) * L::kKVTile;
+    for (int idx = tid; idx < 2 * kTileK * kChunks; idx += blockDim.x) {
+      const int which = idx / (kTileK * kChunks);
+      const int rem = idx - which * kTileK * kChunks;
+      const int j = rem / kChunks;
+      const int c = rem - j * kChunks;
+      const int key = k0 + j;
+      const bool ok = key < nk;
+      const T* src = (which ? vb : kb) + (long long)(ok ? key : 0) * HD + c * (16 / (int)sizeof(T));
+      cp_async16(kt + (size_t)which * L::kKVTile + j * L::kKS + c * (16 / (int)sizeof(T)), src, ok);
     }
+    float* mt = ms + (size_t)buf * q_rows * kMS;
+    if (mask_vec) {
+      for (int idx = tid; idx < q_rows * (kTileK / 4); idx += blockDim.x) {
+        const int r = idx / (kTileK / 4);
+        const int c = idx - r * (kTileK / 4);
+        const int qi = q0 + r;
+        const int key = k0 + 4 * c;
+        const bool ok = qi < nq && key < nk;
+        cp_async16(mt + r * kMS + 4 * c, mb + (ok ? (long long)qi * nk + key : 0), ok);
+      }
+    } else {
+      for (int idx = tid; idx < q_rows * kTileK; idx += blockDim.x) {
+        const int r = idx / kTileK;
+        const int c = idx - r * kTileK;
+        const int qi = q0 + r;
+        const int key = k0 + c;
+        const bool ok = qi < nq && key < nk;
+        cp_async4(mt + r * kMS + c, mb + (ok ? (long long)qi * nk + key : 0), ok);
+      }
+    }
+  };
+
+  issue_tile(0);
+  cp_async_commit();
+
+  // This warp's rows are r0 = warp * 16 + g and r0 + 8. Their q fragments (times
+  // log2(e), split into hi and lo), zero for padding rows.
+  const int r0 = warp * kRowsPerWarp + g;
+  uint32_t qhi[kSteps][4], qlo[kSteps][4];
+  bool exempt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = q0 + r0 + 8 * half;
+    exempt[half] = qi >= nq || all_blocked[(long long)b * nq + qi] != 0;
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+      const int qi = q0 + r0 + 8 * (e & 1);
+      const float x = qi < nq ? to_f32(q[(bh * nq + qi) * HD + 8 * s + t + 4 * (e >> 1)]) * kLog2e : 0.f;
+      split_tf32(x, qhi[s][e], qlo[s][e]);
+    }
+
+  float m_run[2] = {kInit, kInit};
+  float l_run[2] = {0.f, 0.f};
+  float o[kSteps][4];  // rows g (0, 1) and g + 8 (2, 3); channels 8n + 2t (+1)
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int tile = 0; tile < ntile; ++tile) {
+    if (tile + 1 < ntile) issue_tile(tile + 1);
+    cp_async_commit();  // possibly empty: keeps wait_group 1 meaning "this tile is here"
+    cp_async_wait1();
     __syncthreads();
 
-    if (active) {
-      float s[kPerLane];
-      float tile_max = -1e30f;
+    const int buf = tile & 1;
+    const int k0 = kbeg + tile * kTileK;
+    const T* kt = kvs + (size_t)(2 * buf) * L::kKVTile;
+    const T* vt = kt + L::kKVTile;
+    const float* mw = ms + ((size_t)buf * q_rows + warp * kRowsPerWarp) * kMS;  // this warp's mask rows
+
+    // Scores: s[n] holds rows g, g + 8 x keys 8n + 2t, 8n + 2t + 1.
+    float s[8][4];
 #pragma unroll
-      for (int r = 0; r < kPerLane; ++r) {
-        const int j = lane + 32 * r;
-        const int kj = k0 + j;
-        float dot = 0.f;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int d = 0; d < HD; ++d) dot += qreg[d] * ks[j][d];
-        const bool blocked = kj >= nk || (!exempt && mrow[kj] < 0.f);
-        s[r] = dot + (blocked ? kNegInf : 0.f);
-        tile_max = fmaxf(tile_max, s[r]);
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const T* kr = kt + (8 * n + g) * L::kKS + 8 * st + t;  // b0 (k = t, key g), b1 (k = t + 4)
+        mma_3xtf32(s[n], qhi[st], qlo[st], to_f32(kr[0]), to_f32(kr[4]));
       }
-      const float m_new = fmaxf(m_run, warp_max(tile_max));
-      const float alpha = expf(m_run - m_new);
-      float psum = 0.f;
+
+    // Mask, then the online softmax per row (max over the 4 lanes of a row).
+    float mt[2] = {kInit, kInit};
 #pragma unroll
-      for (int r = 0; r < kPerLane; ++r) {
-        const float p = expf(s[r] - m_new);
-        ps[warp][lane + 32 * r] = p;
-        psum += p;
-      }
-      l_run = l_run * alpha + warp_sum(psum);
-      __syncwarp();
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const int d = lane + 32 * c;
-        if (d < HD) {
-          float a = acc[c] * alpha;
-#pragma unroll 8
-          for (int j = 0; j < kTileK; ++j) a += ps[warp][j] * vs[j][d];
-          acc[c] = a;
-        }
+      for (int half = 0; half < 2; ++half) {
+        const float2 mv = *reinterpret_cast<const float2*>(mw + (g + 8 * half) * kMS + 8 * n + 2 * t);
+        const int key = k0 + 8 * n + 2 * t;
+        const bool b0 = key >= nk || (!exempt[half] && mv.x < 0.f);
+        const bool b1 = key + 1 >= nk || (!exempt[half] && mv.y < 0.f);
+        s[n][2 * half] += b0 ? kNegInf : 0.f;
+        s[n][2 * half + 1] += b1 ? kNegInf : 0.f;
+        mt[half] = fmaxf(mt[half], fmaxf(s[n][2 * half], s[n][2 * half + 1]));
       }
-      __syncwarp();
-      m_run = m_new;
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 1));
+      mt[half] = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 2));
+      const float m_new = fmaxf(m_run[half], mt[half]);
+      alpha[half] = exp2f(m_run[half] - m_new);
+      m_run[half] = m_new;
+      l_run[half] *= alpha[half];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m_run[e >> 1]);
+        l_run[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+    // p @ v, 8 keys per step. The A operand is the score accumulator of block j
+    // as it stands (a0 = (g, key 2t), a1 = (g + 8, key 2t), a2 = (g, key 2t + 1),
+    // a3 = (g + 8, key 2t + 1)), so v's rows are read as keys 2t and 2t + 1.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t phi[4], plo[4];
+      split_tf32(s[j][0], phi[0], plo[0]);
+      split_tf32(s[j][2], phi[1], plo[1]);
+      split_tf32(s[j][1], phi[2], plo[2]);
+      split_tf32(s[j][3], phi[3], plo[3]);
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n) {
+        const T* vr = vt + (8 * j + 2 * t) * L::kKS + 8 * n + g;
+        mma_3xtf32(o[n], phi, plo, to_f32(vr[0]), to_f32(vr[L::kKS]));
+      }
     }
     __syncthreads();
   }
 
-  if (active) {
-    T* orow = out + (bh * nq + qi) * HD;
-    const float inv = 1.f / l_run;
+  // Partials: per (bh, query, split) the running max and sum and the accumulator.
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int d = lane + 32 * c;
-      if (d < HD) store(orow + d, acc[c] * inv);
+  for (int half = 0; half < 2; ++half) {
+    float l = l_run[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qi = q0 + r0 + 8 * half;
+    if (qi >= nq) continue;
+    const long long slot = (bh * nq + qi) * splits + split;
+    float* po = part_o + slot * HD;
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+      *reinterpret_cast<float2*>(po + 8 * n + 2 * t) = make_float2(o[n][2 * half], o[n][2 * half + 1]);
+    if (t == 0) {
+      part_ml[2 * slot] = m_run[half];
+      part_ml[2 * slot + 1] = l;
     }
   }
 }
 
-template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, const void* mask,
-                 const void* all_blocked, void* out, int b, int nh, int nq, int nk, int hd,
-                 cudaStream_t s) {
-  const dim3 block(32 * kWarps);
-  const dim3 grid((unsigned)((nq + kWarps - 1) / kWarps), (unsigned)nh, (unsigned)b);
-  const T* qq = (const T*)q;
-  const T* kk = (const T*)k;
-  const T* vv = (const T*)v;
-  const float* mm = (const float*)mask;
-  const uint8_t* ab = (const uint8_t*)all_blocked;
-  T* oo = (T*)out;
-  switch (hd) {
-    case 16:
-      masked_cross_attention_kernel<T, 16><<<grid, block, 0, s>>>(qq, kk, vv, mm, ab, oo, nh, nq, nk);
-      break;
-    case 32:
-      masked_cross_attention_kernel<T, 32><<<grid, block, 0, s>>>(qq, kk, vv, mm, ab, oo, nh, nq, nk);
-      break;
-    case 64:
-      masked_cross_attention_kernel<T, 64><<<grid, block, 0, s>>>(qq, kk, vv, mm, ab, oo, nh, nq, nk);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// One warp per (bh, query) row: lanes over the splits find the max and the
+// rescaled sum, then lanes over the channels accumulate the rescaled partials
+// (eight splits' loads in flight), and normalise.
+constexpr int kCombineWarps = 8;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kCombineWarps) mca_combine_kernel(
+    const float* __restrict__ part_o, const float* __restrict__ part_ml, T* __restrict__ out,
+    long long rows, int splits) {
+  constexpr int kPerLane = (HD + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* ml = part_ml + row * splits * 2;
+  const float* po = part_o + row * splits * HD;
+  float m = kInit;
+  for (int s = lane; s < splits; s += 32) m = fmaxf(m, ml[2 * s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float l = 0.f;
+  float acc[kPerLane];
+#pragma unroll
+  for (int c = 0; c < kPerLane; ++c) acc[c] = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += 32) {
+    const int s = s0 + lane;
+    const float w = s < splits ? exp2f(ml[2 * s] - m) : 0.f;
+    if (s < splits) l = fmaf(w, ml[2 * s + 1], l);
+    const int n = min(32, splits - s0);
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const float* p = po + (long long)(s0 + j) * HD;
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c)
+        if (lane + 32 * c < HD) acc[c] = fmaf(wj, p[lane + 32 * c], acc[c]);
+    }
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+  for (int c = 0; c < kPerLane; ++c)
+    if (lane + 32 * c < HD) store(out + row * HD + lane + 32 * c, acc[c] / l);
+}
+
+template <typename T, int HD>
+int launch_typed(const void* q, const void* k, const void* v, const void* mask, const void* all_blocked,
+                 void* out, void* part_o, void* part_ml, int b, int nh, int nq, int nk,
+                 int tiles_per_split, int splits, cudaStream_t s) {
+  const int qtiles = (nq + kMaxRows - 1) / kMaxRows;
+  const int per_tile = (nq + qtiles - 1) / qtiles;
+  const int q_rows = (per_tile + kRowsPerWarp - 1) / kRowsPerWarp * kRowsPerWarp;
+  const size_t smem = Layout<T, HD>::bytes(q_rows);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(mca_split_kernel<T, HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)Layout<T, HD>::bytes(kMaxRows));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int mask_vec = (nk % 4 == 0) && ((uintptr_t)mask % 16 == 0);
+  const dim3 grid((unsigned)splits, (unsigned)nh, (unsigned)(b * qtiles));
+  mca_split_kernel<T, HD><<<grid, 32 * (q_rows / kRowsPerWarp), smem, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)mask, (const uint8_t*)all_blocked,
+      (float*)part_o, (float*)part_ml, nh, nq, nk, q_rows, qtiles, tiles_per_split, splits, mask_vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)b * nh * nq;
+  mca_combine_kernel<T, HD><<<(unsigned)((rows + kCombineWarps - 1) / kCombineWarps), 32 * kCombineWarps, 0, s>>>(
+      (const float*)part_o, (const float*)part_ml, (T*)out, rows, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* mask,
+                const void* all_blocked, void* out, void* part_o, void* part_ml, int b, int nh,
+                int nq, int nk, int tps, int splits, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_typed<T, 16>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
+    case 32: return launch_typed<T, 32>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
+    case 64: return launch_typed<T, 64>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// part_o: float32 scratch of b*nh*nq*splits*hd; part_ml: of b*nh*nq*splits*2.
+// The keys are cut into `splits` chunks of `tiles_per_split` 64-key tiles
+// (splits == ceil(ceil(nk / 64) / tiles_per_split)). k and v must be 16-byte aligned.
 extern "C" int rgbd_masked_cross_attention(
     const void* q, const void* k, const void* v, const void* mask, const void* all_blocked,
-    void* out, int b, int nh, int nq, int nk, int hd, int bf16, void* stream) {
+    void* out, void* part_o, void* part_ml, int b, int nh, int nq, int nk, int hd,
+    int tiles_per_split, int splits, int bf16, void* stream) {
   if (b == 0 || nh == 0 || nq == 0) return (int)cudaSuccess;
-  if (nk <= 0) return (int)cudaErrorInvalidValue;
+  const int ntiles = (nk + kTileK - 1) / kTileK;
+  if (nk <= 0 || tiles_per_split <= 0 || splits != (ntiles + tiles_per_split - 1) / tiles_per_split)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return launch_typed<__nv_bfloat16>(q, k, v, mask, all_blocked, out, b, nh, nq, nk, hd, s);
-  return launch_typed<float>(q, k, v, mask, all_blocked, out, b, nh, nq, nk, hd, s);
+  if (bf16)
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk,
+                                      tiles_per_split, splits, s);
+  return dispatch_hd<float>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk,
+                            tiles_per_split, splits, s);
 }

@@ -2,9 +2,9 @@
 (counterpart of `rgbdseg_tpu/models/pixel_decoder.py`).
 
 4 channels-last backbone maps -> (mask_features at stride 4, three maps at
-strides 32/16/8). The per-level sampling goes through kernel K1
-(`ops.kernels.deformable.deform_sample_level`) at every level. LayerNorm and
-GroupNorm use flax's default eps 1e-6, not torch's 1e-5.
+strides 32/16/8). The sampling of all levels goes through kernel K1
+(`ops.kernels.deformable.deform_sample_levels`), one launch per encoder
+layer. LayerNorm and GroupNorm use flax's default eps 1e-6, not torch's 1e-5.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.kernels.deformable import deform_sample_level
+from ..ops.kernels.deformable import deform_sample_levels
 from ..ops.resize import resize_bilinear
 from .position import sine_position_embedding
 
@@ -31,6 +31,18 @@ def offset_bias_grid(num_heads: int, n_levels: int, n_points: int) -> np.ndarray
     for i in range(n_points):
         grid[:, :, i, :] *= i + 1
     return grid.reshape(-1).astype(np.float32)
+
+
+def sampling_locations(reference_points, offsets, spatial_shapes) -> torch.Tensor:
+    """(B, L, nh, nl, P, 2) normalized (x, y): each query's reference point
+    (B, L, nl, 2) plus its pixel offsets (B, L, nh, nl, P, 2) over the level's
+    (w, h). In f32: pixel coordinates reach O(100)."""
+    normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32,
+                              device=offsets.device)
+    return (
+        reference_points.float()[:, :, None, :, None, :]
+        + offsets.float() / normalizer[None, None, None, :, None, :]
+    )
 
 
 class DeformableAttention(nn.Module):
@@ -57,28 +69,9 @@ class DeformableAttention(nn.Module):
         weights = torch.softmax(self.attention_weights(with_pos).reshape(b, l, nh, nl * npts), dim=-1)
         weights = weights.reshape(b, l, nh, nl, npts)
 
-        # Location arithmetic in f32: pixel coordinates reach O(100).
-        normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32,
-                                  device=hidden_states.device)
-        locations = (
-            reference_points.float()[:, :, None, :, None, :]
-            + offsets.float() / normalizer[None, None, None, :, None, :]
-        )  # (B, L, nh, nl, P, 2) normalized (x, y)
-
-        level_start = np.cumsum([0] + [h * w for h, w in spatial_shapes])
-        wt = weights.permute(0, 2, 1, 3, 4)  # (B, nh, L, nl, P)
-        out = torch.zeros(b, nh, l, hd, dtype=hidden_states.dtype, device=hidden_states.device)
-        for lvl, (h, w) in enumerate(spatial_shapes):
-            v = value[:, level_start[lvl] : level_start[lvl + 1]]  # (B, hw, nh, hd)
-            vbh = v.permute(0, 2, 1, 3).reshape(b * nh, h * w, hd).contiguous()
-            coords = locations[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(b * nh, l, npts, 2)
-            gx = (coords[..., 0] * w - 0.5).contiguous()
-            gy = (coords[..., 1] * h - 0.5).contiguous()
-            aw = wt[:, :, :, lvl].reshape(b * nh, l, npts).float().contiguous()
-            sampled = deform_sample_level(gx, gy, aw, vbh, h, w)
-            out = out + sampled.reshape(b, nh, l, hd).to(out.dtype)
-        out = out.permute(0, 2, 1, 3).reshape(b, l, d)
-        return self.output_proj(out)
+        locations = sampling_locations(reference_points, offsets, spatial_shapes)
+        out = deform_sample_levels(value, spatial_shapes, locations, weights.float())
+        return self.output_proj(out.to(hidden_states.dtype))
 
 
 class EncoderLayer(nn.Module):
@@ -105,6 +98,16 @@ def reference_points_for_shapes(spatial_shapes, device=None) -> torch.Tensor:
         gy, gx = torch.meshgrid(ry, rx, indexing="ij")
         pts.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
     return torch.cat(pts, dim=0)
+
+
+def initial_locations(spatial_shapes, nh: int, npts: int, device=None) -> torch.Tensor:
+    """The sampling locations (1, L_total, nh, nl, P, 2) of a freshly initialised
+    layer (zero offset kernel, `offset_bias_grid` bias): every query samples 1..P
+    pixels from its reference point along its head's direction, at every level."""
+    nl = len(spatial_shapes)
+    ref = reference_points_for_shapes(spatial_shapes, device)[None, :, None, :].expand(1, -1, nl, 2)
+    off = torch.from_numpy(offset_bias_grid(nh, nl, npts)).to(device).reshape(1, 1, nh, nl, npts, 2)
+    return sampling_locations(ref, off.expand(1, ref.shape[1], nh, nl, npts, 2), spatial_shapes)
 
 
 class PixelDecoder(nn.Module):

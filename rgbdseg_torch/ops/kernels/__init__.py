@@ -10,7 +10,8 @@ The kernel modules (`deformable`, `masked_attention`) each hold the plain
 PyTorch version of their function, the wrapper, and a source note. A wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises. `LAUNCHES` counts kernel launches per wrapper: a plain
-integer each, bumped only where the kernel is launched.
+integer each, bumped only where the kernel is launched (once per call, also
+where one call is two launches, as K3's split and combine are).
 """
 
 from __future__ import annotations
@@ -36,12 +37,12 @@ NVCC_FLAGS = [
 # Kernel name -> C entry point and its ctypes argument types.
 _SIGNATURES = {
     "deformable": (
-        "rgbd_deform_sample_level",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "rgbd_deform_sample",
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     ),
     "masked_attention": (
         "rgbd_masked_cross_attention",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
 }
 

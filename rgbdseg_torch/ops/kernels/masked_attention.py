@@ -2,11 +2,12 @@
 
 Replaces `rgbdseg_tpu/ops/kernels/masked_attention.py::masked_cross_attention`
 (`_mca_pallas` / `_mca_kernel`). The CUDA kernel
-(`rgbdseg_torch/csrc/masked_attention.cu`) runs a flash-style online softmax
-over key tiles staged in shared memory, one block per (batch, head, tile of 8
-queries) and one warp per query, with the mask test `m < 0 && !all_blocked`
-evaluated inside the kernel. At the main path's shapes it is bound by f32
-operations on the H100 (see the source for the numbers and the design).
+(`rgbdseg_torch/csrc/masked_attention.cu`) splits the keys: one block per
+(batch, head, chunk of 64-key tiles) owns every query, runs a flash-style
+online softmax over its tiles (staged with cp.async, double-buffered, register
+tiled on the f32 FMA units) with the mask test `m < 0 && !all_blocked`
+evaluated inside the kernel, and writes partial (max, sum, accumulator) rows;
+a second kernel combines them. A call is those two launches and counts once.
 
 `masked_cross_attention` keeps the JAX signature: q (B, H, Q, hd) pre-scaled by
 hd**-0.5; k, v (B, H, K, hd); mask_logits (B, Q, K) float32 raw logits;
@@ -15,11 +16,15 @@ all_blocked (B, Q) bool. Returns (B, H, Q, hd) in q's dtype. Forward only.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import check_cuda_tensor, launch
 
 NEG_INF = -1e9
+TILE_K = 64  # keys per tile of the kernel
+MAX_ROWS = 128  # queries per block; more take more query tiles
 
 
 def masked_cross_attention_plain(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
@@ -31,8 +36,19 @@ def masked_cross_attention_plain(q, k, v, mask_logits, all_blocked) -> torch.Ten
     return (attn.to(v.dtype) @ v).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _split_plan(b: int, nh: int, nq: int, nk: int, device_index: int) -> tuple[int, int]:
+    """(tiles per split, splits): whole 64-key tiles per block, the fewest per
+    block that keep the grid within one wave of two blocks per SM."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    ntiles = -(-nk // TILE_K)
+    blocks_per_split = b * nh * -(-nq // MAX_ROWS)
+    tiles_per_split = -(-ntiles * blocks_per_split // (2 * sms))
+    return tiles_per_split, -(-ntiles // tiles_per_split)
+
+
 def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
-    """K3 wrapper: the plain version for CPU tensors, the CUDA kernel for CUDA ones."""
+    """K3 wrapper: the plain version for CPU tensors, the CUDA kernels for CUDA ones."""
     if not q.is_cuda:
         return masked_cross_attention_plain(q, k, v, mask_logits, all_blocked)
     b, nh, nq, hd = q.shape
@@ -44,8 +60,8 @@ def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
             f"mask_logits {tuple(mask_logits.shape)} / all_blocked {tuple(all_blocked.shape)} "
             f"must be ({b}, {nq}, {nk}) / ({b}, {nq})"
         )
-    if hd not in (16, 32, 64):
-        raise ValueError(f"head dim {hd} not in (16, 32, 64)")
+    if hd not in (16, 32, 64) or nk == 0:
+        raise ValueError(f"head dim {hd} not in (16, 32, 64), or no keys (K={nk})")
     dtypes = (torch.float32, torch.bfloat16)
     check_cuda_tensor(q, "q", dtypes)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -54,11 +70,15 @@ def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
     check_cuda_tensor(v, "v", dtypes)
     check_cuda_tensor(mask_logits, "mask_logits", (torch.float32,))
     check_cuda_tensor(all_blocked, "all_blocked", (torch.bool,))
+    tiles_per_split, splits = _split_plan(b, nh, nq, nk, q.get_device())
     out = torch.empty_like(q)
+    # The splits' partials: accumulators (rows, splits, hd), then (max, sum) pairs.
+    parts = b * nh * nq * splits
+    scratch = torch.empty(parts * (hd + 2), dtype=torch.float32, device=q.device)
     launch(
         "masked_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(),
-        all_blocked.data_ptr(), out.data_ptr(),
-        b, nh, nq, nk, hd, int(q.dtype == torch.bfloat16),
+        all_blocked.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + parts * hd * 4,
+        b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
     )
     return out

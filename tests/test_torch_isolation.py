@@ -21,13 +21,18 @@ from rgbdseg_torch.config import ModelConfig
 from rgbdseg_torch.inference import predictor as tpredictor
 from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
 from rgbdseg_torch.ops.kernels import LAUNCHES, reset_launches
-from rgbdseg_torch.ops.kernels.deformable import deform_sample_level, deform_sample_level_plain
+from rgbdseg_torch.ops.kernels.deformable import (
+    deform_sample_level,
+    deform_sample_level_plain,
+    deform_sample_levels,
+    deform_sample_levels_plain,
+)
 from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
 from rgbdseg_torch.utils.weights import from_flax
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL"}
-PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -79,9 +84,16 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     m = torch.from_numpy(rng.randn(2, 20, 64).astype(np.float32))
     m[:, 0] = -1.0
     ab = (m < 0).all(-1)
+    shapes = ((5, 6), (3, 3))
+    value = torch.from_numpy(rng.randn(2, 39, 2, 16).astype(np.float32))
+    loc = torch.from_numpy(rng.uniform(0, 1, (2, 39, 2, 2, 4, 2)).astype(np.float32))
+    wts = torch.softmax(torch.from_numpy(rng.randn(2, 39, 2, 2, 4).astype(np.float32)), -1)
     reset_launches()
     torch.testing.assert_close(
         deform_sample_level(gx, gy, aw, v, 17, 23), deform_sample_level_plain(gx, gy, aw, v, 17, 23)
+    )
+    torch.testing.assert_close(
+        deform_sample_levels(value, shapes, loc, wts), deform_sample_levels_plain(value, shapes, loc, wts)
     )
     torch.testing.assert_close(
         masked_cross_attention(q, k, vv, m, ab), masked_cross_attention_plain(q, k, vv, m, ab)

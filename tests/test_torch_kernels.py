@@ -1,12 +1,14 @@
 """The port's kernel modules against the JAX package's golden twins.
 
-The plain PyTorch versions of K1 (`deform_sample_level`) and K3
-(`masked_cross_attention`) are held against `tent_sample_level_xla` and
-`masked_cross_attention_xla`, which `tests/test_pallas_kernels.py` pins to the
-Pallas kernels. The CUDA kernels themselves are held against the plain versions
-by `test_cuda_kernels_match_plain`, which needs a card and skips without one.
-JAX is imported inside the `jx` fixture only, so that the CUDA test also runs on
-a machine without JAX (`python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`).
+The plain PyTorch versions of K1 (`deform_sample_level` for one level,
+`deform_sample_levels` for all levels of an encoder layer) and K3
+(`masked_cross_attention`) are held against `tent_sample_level_xla` (summed
+over levels for the multi-level function) and `masked_cross_attention_xla`,
+which `tests/test_pallas_kernels.py` pins to the Pallas kernels. The CUDA
+kernels themselves are held against the plain versions by the `cuda`-marked
+tests, which need a card and skip without one. JAX is imported inside the `jx`
+fixture only, so that the CUDA tests also run on a machine without JAX
+(`python -m pytest --noconftest tests/test_torch_kernels.py -m cuda`).
 """
 
 import numpy as np
@@ -14,7 +16,13 @@ import pytest
 import torch
 
 from rgbdseg_torch.ops.kernels import LAUNCHES, reset_launches
-from rgbdseg_torch.ops.kernels.deformable import deform_sample_level, deform_sample_level_plain
+from rgbdseg_torch.models.pixel_decoder import initial_locations
+from rgbdseg_torch.ops.kernels.deformable import (
+    deform_sample_level,
+    deform_sample_level_plain,
+    deform_sample_levels,
+    deform_sample_levels_plain,
+)
 from rgbdseg_torch.ops.kernels.masked_attention import (
     masked_cross_attention,
     masked_cross_attention_plain,
@@ -86,6 +94,62 @@ def test_deform_plain_matches_jax_twin(jx, case):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+def _levels_inputs(shapes, nh=2, hd=32, npts=4, b=2, geometry="random", seed=0):
+    """Inputs of the multi-level K1 in the model's layouts, one query per pixel of
+    every level (as in the encoder). "random": locations over [-0.1, 1.1]^2, out
+    of bounds too; "model": the sampling locations of a freshly initialised layer
+    (reference point plus 1..P pixels along each head's direction)."""
+    rng = np.random.RandomState(seed)
+    nl = len(shapes)
+    l = sum(h * w for h, w in shapes)
+    value = rng.randn(b, l, nh, hd).astype(np.float32)
+    if geometry == "random":
+        loc = rng.uniform(-0.1, 1.1, (b, l, nh, nl, npts, 2)).astype(np.float32)
+    else:
+        loc = np.repeat(initial_locations(shapes, nh, npts).numpy(), b, axis=0)
+    weights = _softmax(rng.randn(b, l, nh, nl * npts).astype(np.float32)).reshape(b, l, nh, nl, npts)
+    return value, loc, weights
+
+
+def _levels_reference(jx_deformable, value, loc, weights, shapes):
+    """Sum over levels of the JAX per-level twin, in the (B, L, nh * hd) output layout."""
+    b, l, nh, nl, npts, _ = loc.shape
+    hd = value.shape[-1]
+    out = np.zeros((b * nh, l, hd), np.float32)
+    start = 0
+    for lvl, (h, w) in enumerate(shapes):
+        v = value[:, start : start + h * w].transpose(0, 2, 1, 3).reshape(b * nh, h * w, hd)
+        coords = loc[:, :, :, lvl].transpose(0, 2, 1, 3, 4).reshape(b * nh, l, npts, 2)
+        aw = weights[:, :, :, lvl].transpose(0, 2, 1, 3).reshape(b * nh, l, npts)
+        gx = coords[..., 0] * np.float32(w) - np.float32(0.5)
+        gy = coords[..., 1] * np.float32(h) - np.float32(0.5)
+        out += np.asarray(jx_deformable.tent_sample_level_xla(gx, gy, aw, v, h, w))
+        start += h * w
+    return out.reshape(b, nh, l, hd).transpose(0, 2, 1, 3).reshape(b, l, nh * hd)
+
+
+_LEVELS_CASES = {
+    "2_levels_hd16_random": (((5, 7), (3, 4)), 16, "random"),
+    "3_levels_hd32_random": (((9, 11), (5, 6), (3, 3)), 32, "random"),
+    "3_levels_hd16_model": (((8, 10), (4, 5), (2, 3)), 16, "model"),
+    "3_levels_hd32_model": (((12, 16), (6, 8), (3, 4)), 32, "model"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LEVELS_CASES))
+def test_deform_levels_plain_matches_jax_twin(jx, case):
+    """The multi-level plain K1 against the sum over levels of the JAX per-level
+    twin. Tolerance 1e-5: the same f32 bilinear weights summed in another order."""
+    _, deformable, _ = jx
+    shapes, hd, geometry = _LEVELS_CASES[case]
+    value, loc, weights = _levels_inputs(shapes, hd=hd, geometry=geometry)
+    ref = _levels_reference(deformable, value, loc, weights, shapes)
+    out = deform_sample_levels_plain(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                                     torch.from_numpy(weights))
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
 def _mca_inputs(b=2, h=4, nq=100, nk=300, hd=32, seed=0):
     """The inputs of `test_pallas_kernels._mca_inputs`, plus one all-unblocked row."""
     rng = np.random.RandomState(seed)
@@ -110,22 +174,40 @@ def test_mca_plain_matches_jax_twin(jx, nk):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """Each CUDA kernel against its plain version on the card, at the 480x640
-    main-path shapes. Tolerances: 1e-5 in f32 (same f32 arithmetic, another
-    summation order); 2e-2 for K1 with bf16 values and K3 in bf16."""
+LEVELS_480x640 = ((15, 20), (30, 40), (60, 80))
+
+
+def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the card, at the 480x640
+    main-path shapes and the in-model sampling geometry. Tolerances: 1e-5 in f32
+    (same f32 arithmetic, another summation order); 2e-2 for K1 with bf16 values
+    and K3 in bf16."""
+    _need_cuda()
     dev = "cuda"
     reset_launches()
-    for h, w in ((15, 20), (30, 40), (60, 80)):
-        gx, gy, aw, v = (torch.from_numpy(a).to(dev) for a in _tent_inputs(bh=8, l=6300, h=h, w=w))
-        for vt, tol in ((v, 1e-5), (v.bfloat16(), 2e-2)):
-            out = deform_sample_level(gx, gy, aw, vt, h, w)
-            ref = deform_sample_level_plain(gx, gy, aw, vt, h, w)
-            torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    value, loc, weights = (torch.from_numpy(a).to(dev) for a in
+                           _levels_inputs(LEVELS_480x640, nh=8, b=1, geometry="model"))
+    for vt, tol in ((value, 1e-5), (value.bfloat16(), 2e-2)):
+        torch.testing.assert_close(
+            deform_sample_levels(vt, LEVELS_480x640, loc, weights),
+            deform_sample_levels_plain(vt, LEVELS_480x640, loc, weights), atol=tol, rtol=tol,
+        )
+    start = 0
+    for lvl, (h, w) in enumerate(LEVELS_480x640):  # the per-level entry, one level each
+        v = value[:, start : start + h * w].permute(0, 2, 1, 3).reshape(8, h * w, 32).contiguous()
+        coords = loc[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(8, -1, 4, 2)
+        gx, gy = (coords[..., 0] * w - 0.5).contiguous(), (coords[..., 1] * h - 0.5).contiguous()
+        aw = weights[:, :, :, lvl].permute(0, 2, 1, 3).reshape(8, -1, 4).contiguous()
+        torch.testing.assert_close(deform_sample_level(gx, gy, aw, v, h, w),
+                                   deform_sample_level_plain(gx, gy, aw, v, h, w), atol=1e-5, rtol=1e-5)
+        start += h * w
     for nk in (300, 1200, 4800):
         q, k, v, m, ab = (torch.from_numpy(a).to(dev) for a in _mca_inputs(b=1, h=8, nk=nk))
         q = q * 32**-0.5  # pre-scaled, as the model calls it
@@ -140,4 +222,72 @@ def test_cuda_kernels_match_plain():
             atol=2e-2, rtol=2e-2,
         )
     torch.cuda.synchronize()
-    assert LAUNCHES == {"deformable": 6, "masked_attention": 6}
+    assert LAUNCHES == {"deformable": 5, "masked_attention": 6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["model", "random", "integer"])
+def test_cuda_deform_levels_match_plain(geometry):
+    """The one-launch multi-level K1 against its plain version at the 480x640
+    levels, B=2 (1e-5 f32, 2e-2 bf16 V); "integer" puts every sample on a pixel
+    centre, the borders and one pixel outside them included; the per-level entry
+    is checked on exact-integer pixel coordinates too."""
+    _need_cuda()
+    value, loc, weights = _levels_inputs(LEVELS_480x640, nh=8, geometry="random" if geometry == "random" else "model")
+    if geometry == "integer":
+        rng = np.random.RandomState(7)
+        for lvl, (h, w) in enumerate(LEVELS_480x640):
+            ix = rng.randint(-1, w + 1, loc.shape[:3] + (4,))
+            iy = rng.randint(-1, h + 1, loc.shape[:3] + (4,))
+            loc[:, :, :, lvl, :, 0] = (ix + np.float32(0.5)) / np.float32(w)
+            loc[:, :, :, lvl, :, 1] = (iy + np.float32(0.5)) / np.float32(h)
+    value, loc, weights = (torch.from_numpy(a).cuda() for a in (value, loc, weights))
+    for vt, tol in ((value, 1e-5), (value.bfloat16(), 2e-2)):
+        torch.testing.assert_close(
+            deform_sample_levels(vt, LEVELS_480x640, loc, weights),
+            deform_sample_levels_plain(vt, LEVELS_480x640, loc, weights), atol=tol, rtol=tol,
+        )
+    gx, gy, aw, v = (torch.from_numpy(a).cuda() for a in _tent_integer_coords())
+    torch.testing.assert_close(deform_sample_level(gx, gy, aw, v, 9, 11),
+                               deform_sample_level_plain(gx, gy, aw, v, 9, 11), atol=1e-5, rtol=1e-5)
+    torch.cuda.synchronize()
+
+
+def _mca_edge_inputs(nq, nk, hd, b=2, h=8, seed=0):
+    """Random masks plus: row 0 all blocked (exempted), row 1 (row 0 when Q=1)
+    unblocked only at the last key, which lies in the last split."""
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(b, h, nq, hd) * hd**-0.5).astype(np.float32)
+    k = rng.randn(b, h, nk, hd).astype(np.float32)
+    v = rng.randn(b, h, nk, hd).astype(np.float32)
+    m = rng.randn(b, nq, nk).astype(np.float32)
+    only_last = 1 if nq > 1 else 0
+    m[:, only_last] = -np.abs(m[:, only_last]) - 0.1
+    m[:, only_last, -1] = 1.0
+    if nq > 1:
+        m[:, 0] = -np.abs(m[:, 0]) - 0.1
+    ab = np.all(m < 0.0, axis=-1)
+    return q, k, v, m, ab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [1, 63, 64, 65, 300, 1200, 4800, 4801])
+def test_cuda_mca_matches_plain(nk):
+    """Split-K K3 against its plain version for Q in (1, 100, 129) and hd in
+    (16, 32, 64): 1e-5 in f32, 2e-2 in bf16. The row unblocked only at its last
+    key must come out as that key's value row exactly (within f32 rounding)."""
+    _need_cuda()
+    for nq in (1, 100, 129):
+        for hd in (16, 32, 64):
+            q, k, v, m, ab = (torch.from_numpy(a).cuda() for a in _mca_edge_inputs(nq, nk, hd))
+            out = masked_cross_attention(q, k, v, m, ab)
+            torch.testing.assert_close(out, masked_cross_attention_plain(q, k, v, m, ab), atol=1e-5, rtol=1e-5)
+            only_last = 1 if nq > 1 else 0
+            if nk > 1:
+                torch.testing.assert_close(out[:, :, only_last], v[:, :, -1], atol=1e-5, rtol=1e-5)
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            torch.testing.assert_close(
+                masked_cross_attention(qb, kb, vb, m, ab).float(),
+                masked_cross_attention_plain(qb, kb, vb, m, ab).float(), atol=2e-2, rtol=2e-2,
+            )
+    torch.cuda.synchronize()
