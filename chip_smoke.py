@@ -22,9 +22,26 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      request went through them (6 K1, one per encoder layer; 9 K3); then one
      frame through a CPU copy of the same model, where the plain versions run,
      bounds the logits' difference;
-  5. a `kernels` JSON line; the last line is the device JSON.
-With --profile, phase 4 also profiles one request (torch.profiler): the
-device's busy share and the kernels that take the most device time.
+  5. backward kernels: K1's and K3's backward kernels against their plain
+     backward versions at the train shapes (B=2): K1 at the in-model geometry
+     (timed) and at random coordinates, K3 at K=300, 1200 and 4800 with an
+     all-blocked row; device time from a replayed CUDA graph, eager time, the
+     plain version's and the library yardstick's device time (CUDA events around
+     eager calls: the aten grid_sample backward for each level, SDPA's backward
+     through autograd), and a byte and operation bound;
+  6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
+     drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
+     480x640 frames with 16 box instances each, f32 with TF32 off; per step the
+     step time, the matcher's host time, loss, gradient norm, peak device memory
+     and the launches, which must be 6 K1 and 9 K3 forward and backward each;
+     the kernels' gradients must reach value_proj, sampling_offsets,
+     attention_weights and the decoder's q/k/v projections;
+  7. step 0 on GPU and CPU: the same weights and batch, the same injected point
+     coordinates, dropout and drop path off: the loss and gradient norm agree;
+  8. a `kernels` JSON line; the last line is the device JSON.
+With --profile, phases 4 and 6 also profile one request and one train step
+(torch.profiler): the device's busy share and the kernels that take the most
+device time.
 It needs one CUDA card and a checkout of the repository around it; without
 either it exits with code 1 and prints no result.
 """
@@ -53,6 +70,17 @@ K3_TOL, K3_TOL_BF16 = 1e-5, 2e-2
 # cuBLAS vs the CPU's kernels, the CUDA kernels vs their plain versions), about
 # 1e-6 per op over ~40 stacked layers.
 SLICE_RTOL = 1e-3
+# Backward kernels against their plain versions, relative to the largest |ref|:
+# K1 per gradient (its d value is summed with float atomics in an order that
+# changes from run to run, a few ulps of the largest contribution); K3 over
+# d q, d k and d v together (with one key, d q and d k are exactly 0 in the
+# plain version).
+K1_BWD_RTOL = K3_BWD_RTOL = 1e-5
+TRAIN_B, TRAIN_T = 2, 16  # train batch and real instances per frame
+# Step 0 on GPU against CPU: f32 with TF32 off on both, summation orders (cuDNN,
+# cuBLAS, atomics vs the CPU), and at random init attention-mask pixels whose
+# logit sits at 0 may flip between the two and change later layers a little.
+STEP0_LOSS_RTOL, STEP0_GNORM_RTOL = 1e-3, 1e-2
 LEVELS = ((15, 20), (30, 40), (60, 80))  # deformable levels at 480x640
 KEYS = (300, 1200, 4800)  # masked cross-attention keys at 480x640
 NH, L, P, HD, NQ = 8, 6300, 4, 32, 100  # heads, queries (all levels' pixels), points
@@ -101,6 +129,22 @@ def eager_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
+def events_ms(fn, iters: int = 10) -> float:
+    """Device ms per call: CUDA events around `iters` eager calls after a
+    warm-up (host gaps between calls included), for calls a graph cannot hold."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _timed(fn):
     """(fn(), wall ms) with the device synchronised on both sides."""
     import torch
@@ -117,23 +161,23 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> 
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def k1_inputs(rng, dev, geometry: str):
-    """Multi-level K1 inputs at 480x640 in the model's layouts: value (1, 6300, 8, 32),
-    locations (1, 6300, 8, 3, 4, 2), weights (1, 6300, 8, 3, 4). "model": the
+def k1_inputs(rng, dev, geometry: str, b: int = 1):
+    """Multi-level K1 inputs at 480x640 in the model's layouts: value (b, 6300, 8, 32),
+    locations (b, 6300, 8, 3, 4, 2), weights (b, 6300, 8, 3, 4). "model": the
     in-model geometry with uniform weights; "random": uniform locations over
     [-0.1, 1.1]^2 and random softmax weights (a correctness case)."""
     import torch
 
     from rgbdseg_torch.models.pixel_decoder import initial_locations
 
-    value = torch.from_numpy(rng.randn(1, L, NH, HD).astype(np.float32)).to(dev)
+    value = torch.from_numpy(rng.randn(b, L, NH, HD).astype(np.float32)).to(dev)
     if geometry == "model":
-        loc = initial_locations(LEVELS, NH, P, dev)
-        weights = torch.full((1, L, NH, len(LEVELS), P), 1.0 / (len(LEVELS) * P), device=dev)
+        loc = initial_locations(LEVELS, NH, P, dev).expand(b, -1, -1, -1, -1, -1).contiguous()
+        weights = torch.full((b, L, NH, len(LEVELS), P), 1.0 / (len(LEVELS) * P), device=dev)
     else:
-        loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (1, L, NH, len(LEVELS), P, 2)).astype(np.float32)).to(dev)
-        weights = torch.softmax(torch.from_numpy(rng.randn(1, L, NH, len(LEVELS) * P).astype(np.float32)), -1)
-        weights = weights.reshape(1, L, NH, len(LEVELS), P).to(dev)
+        loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, L, NH, len(LEVELS), P, 2)).astype(np.float32)).to(dev)
+        weights = torch.softmax(torch.from_numpy(rng.randn(b, L, NH, len(LEVELS) * P).astype(np.float32)), -1)
+        weights = weights.reshape(b, L, NH, len(LEVELS), P).to(dev)
     return value, loc, weights
 
 
@@ -160,13 +204,30 @@ def k1_corners(gx, gy, aw, h, w) -> int:
     return n
 
 
-def mca_inputs(rng, nk, dev):
+def k1_bwd_cells(loc) -> int:
+    """(point, cell) pairs the K1 backward needs: in bounds, with a non-zero
+    tent value or slope in either direction."""
+    from rgbdseg_torch.ops.kernels.deformable import _OFFSETS, _tent_factors
+
+    n = 0
+    for lvl, (h, w) in enumerate(LEVELS):
+        x0, wx, dx = _tent_factors(loc[:, :, :, lvl, :, 0] * w - 0.5)
+        y0, wy, dy = _tent_factors(loc[:, :, :, lvl, :, 1] * h - 0.5)
+        for iy, oy in enumerate(_OFFSETS):
+            for ix, ox in enumerate(_OFFSETS):
+                inb = (x0 + ox >= 0) & (x0 + ox <= w - 1) & (y0 + oy >= 0) & (y0 + oy <= h - 1)
+                nz = (wy[iy] * wx[ix] != 0) | (wy[iy] * dx[ix] != 0) | (dy[iy] * wx[ix] != 0)
+                n += (inb & nz).sum().item()
+    return n
+
+
+def mca_inputs(rng, nk, dev, b: int = 1):
     import torch
 
-    q = rng.randn(1, 8, NQ, HD).astype(np.float32) * HD**-0.5
-    k = rng.randn(1, 8, nk, HD).astype(np.float32)
-    v = rng.randn(1, 8, nk, HD).astype(np.float32)
-    m = rng.randn(1, NQ, nk).astype(np.float32)
+    q = rng.randn(b, 8, NQ, HD).astype(np.float32) * HD**-0.5
+    k = rng.randn(b, 8, nk, HD).astype(np.float32)
+    v = rng.randn(b, 8, nk, HD).astype(np.float32)
+    m = rng.randn(b, NQ, nk).astype(np.float32)
     m[:, 0] = -np.abs(m[:, 0]) - 0.1  # an all-blocked row: exempted, attends to every key
     ab = np.all(m < 0.0, axis=-1)
     assert ab[0, 0]
@@ -179,6 +240,14 @@ def _check(name, got, ref, tol):
     if not err <= tol:
         raise AssertionError(f"{name}: {err} > {tol}")
     return err
+
+
+def _check_grads(name, got, ref, rtol, joint=False):
+    """Each gradient within rtol x its largest |ref| (or, with `joint`, the largest
+    over all of them); returns the largest absolute error."""
+    scales = [r.abs().max().item() for r in ref]
+    return max(_check(f"{name} d{i}", g, r, rtol * (max(scales) if joint else s))
+               for i, (g, r, s) in enumerate(zip(got, ref, scales)))
 
 
 def check_kernels(rng, dev) -> dict:
@@ -297,6 +366,97 @@ def check_kernels(rng, dev) -> dict:
     return rows
 
 
+def check_backward_kernels(rng, dev) -> dict:
+    """Phase 5: each backward kernel against its plain backward at the train shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
+
+    rows = {"deform_sample_levels_bwd": [], "masked_cross_attention_bwd": []}
+    starts = [sum(h * w for h, w in LEVELS[:i]) for i in range(len(LEVELS))]
+    for geometry in ("random", "model"):
+        value, loc, weights = k1_inputs(rng, dev, geometry, TRAIN_B)
+        g = torch.from_numpy(rng.randn(TRAIN_B, L, NH * HD).astype(np.float32)).to(dev)
+
+        def kernel():
+            return KD._launch_bwd(value, loc, weights, LEVELS, starts, True, g)
+
+        def plain():
+            return KD.deform_sample_levels_plain_bwd(value, LEVELS, loc, weights, g)
+
+        err = _check_grads(f"deform_sample_levels_bwd {geometry}", kernel(), plain(), K1_BWD_RTOL)
+        if geometry != "model":
+            continue
+        # The library yardstick: aten's grid_sample backward for each level, on
+        # images, grids and output gradients laid out for it beforehand.
+        lib_args = []
+        for lvl, (h, w) in enumerate(LEVELS):
+            img = value[:, starts[lvl] : starts[lvl] + h * w].permute(0, 2, 3, 1).reshape(TRAIN_B * NH, HD, h, w)
+            grid = loc[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(TRAIN_B * NH, L, P, 2) * 2 - 1
+            go = torch.randn(TRAIN_B * NH, HD, L, P, device=dev)
+            lib_args.append((go, img.contiguous(), grid.contiguous()))
+
+        def library():
+            return [torch.ops.aten.grid_sampler_2d_backward(go, img, grid, 0, 0, False, [True, True])
+                    for go, img, grid in lib_args]
+
+        cells = k1_bwd_cells(loc)
+        # Inputs value, locations, weights, grad_out read once; d value, d
+        # locations, d weights written once. Per needed (point, cell): the dot
+        # with grad_out and the d value update, 2 flops per head channel each.
+        nbytes = 2 * (value.numel() + loc.numel() + weights.numel()) * 4 + g.numel() * 4
+        flops = cells * HD * 4
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = dict(shape="all levels", err=err, ms=time_ms(kernel), eager_ms=eager_ms(kernel),
+                   plain_ms=events_ms(plain), library_ms=events_ms(library), bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, flops=flops)
+        rows["deform_sample_levels_bwd"].append(row)
+        log(f"kernel deform_sample_levels_bwd in-model 3 levels B={TRAIN_B}: ms {row['ms']:.4f} eager_ms "
+            f"{row['eager_ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+            f"bound_ms {b_ms:.4f} ({b_by}); {cells} (point, cell) pairs")
+    for nk in KEYS:
+        q, k, v, m, ab = mca_inputs(rng, nk, dev, TRAIN_B)
+        out, lse = KM._launch(q, k, v, m, ab)
+        g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).to(dev)
+
+        def kernel():
+            return KM._launch_bwd(q, k, v, m, ab, out, lse, g)
+
+        def plain():
+            return KM.masked_cross_attention_plain_bwd(q, k, v, m, ab, g)
+
+        ref = plain()
+        err = _check_grads(f"masked_cross_attention_bwd K={nk}", kernel(), ref, K3_BWD_RTOL, joint=True)
+        allowed = ~((m < 0) & ~ab[:, :, None])[:, None]
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*qkv, attn_mask=allowed, scale=1.0)
+
+        def library():
+            return torch.autograd.grad(lib_out, qkv, g, retain_graph=True)
+
+        scale = max(r.abs().max().item() for r in ref)
+        lib_err = max((a - r).abs().max().item() for a, r in zip(library(), ref))
+        if not lib_err <= 1e-4 * scale:
+            raise AssertionError(f"SDPA backward yardstick disagrees: {lib_err}")
+        # Read q, k, v, out, d out, the mask, all_blocked and lse; write d q, d k, d v.
+        nbytes = (2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel() + m.numel() + lse.numel()) * 4 + ab.numel()
+        # S, dV, dP, dK, dQ: 5 multiply-adds per head channel for each unblocked
+        # (query, key) pair and head, on the f32 FMA units.
+        flops = 10 * q.shape[1] * HD * allowed.sum().item()
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = dict(shape=f"K={nk}", err=err, ms=time_ms(kernel), eager_ms=eager_ms(kernel),
+                   plain_ms=events_ms(plain), library_ms=events_ms(library), bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, flops=flops)
+        rows["masked_cross_attention_bwd"].append(row)
+        log(f"kernel masked_cross_attention_bwd K={nk} B={TRAIN_B}: ms {row['ms']:.4f} eager_ms {row['eager_ms']:.4f} "
+            f"plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+            f"SDPA backward err {lib_err:.2e}")
+    torch.cuda.synchronize()
+    return rows
+
+
 def _sobel_mag(d: np.ndarray) -> np.ndarray:
     p = np.pad(d, 1, mode="reflect")
     gx = (p[:-2, 2:] + 2 * p[1:-1, 2:] + p[2:, 2:]) - (p[:-2, :-2] + 2 * p[1:-1, :-2] + p[2:, :-2])
@@ -304,21 +464,24 @@ def _sobel_mag(d: np.ndarray) -> np.ndarray:
     return np.sqrt(gx**2 + gy**2)
 
 
-def synthetic_frame(rng, h: int = 480, w: int = 640) -> np.ndarray:
+def synthetic_frame(rng, h: int = 480, w: int = 640, boxes: int = 4, with_masks: bool = False):
     """A 0.4.0 channel stack: normalised RGB, 3-channel normalised depth, the
     normalised Sobel magnitude of the depth (3 channels) and its validity mask.
-    The depth is an 8-bit map (as a depth PNG is) of a background plane and a
-    few tilted planar boxes, so the DSAM histogram has clear modes."""
+    The depth is an 8-bit map (as a depth PNG is) of a background plane and
+    `boxes` tilted planar boxes, so the DSAM histogram has clear modes. With
+    `with_masks`, also the boxes' masks (boxes, h, w) float32, one instance each."""
     mean = np.array([0.485, 0.456, 0.406], np.float32)
     std = np.array([0.229, 0.224, 0.225], np.float32)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     depth = 200.0 - 0.05 * yy + rng.uniform(-0.02, 0.02) * xx
-    for _ in range(4):
+    masks = []
+    for _ in range(boxes):
         y0, x0 = rng.randint(0, h * 3 // 4), rng.randint(0, w * 3 // 4)
         bh, bw = rng.randint(h // 8, h * 2 // 5), rng.randint(w // 8, w * 2 // 5)
         plane = rng.uniform(40, 160) + rng.uniform(-0.1, 0.1) * (yy - y0) + rng.uniform(-0.1, 0.1) * (xx - x0)
         box = (yy >= y0) & (yy < y0 + bh) & (xx >= x0) & (xx < x0 + bw)
         depth = np.where(box, plane, depth)
+        masks.append(box)
     depth = np.clip(np.round(depth), 0, 255).astype(np.uint8)
     depth[rng.rand(h, w) < 0.01] = 0  # missing depth
     rgb = rng.randint(0, 256, (h, w, 3)).astype(np.float32)
@@ -336,29 +499,37 @@ def synthetic_frame(rng, h: int = 480, w: int = 640) -> np.ndarray:
         np.repeat(norm[..., None], 3, -1),
         gmask[..., None],
     ]
-    return np.concatenate(chans, axis=-1).astype(np.float32)
+    frame = np.concatenate(chans, axis=-1).astype(np.float32)
+    return (frame, np.stack(masks).astype(np.float32)) if with_masks else frame
 
 
 def profile_request(pred, frame, top: int = 15) -> None:
-    """One request under torch.profiler: the device's busy share of the wall
-    time and the kernels that take the most device time (profiler overhead
-    included in the wall time)."""
+    """One request under torch.profiler (after a warm-up one)."""
+    pred.predict_pixels(frame, threshold=0.0)
+    profile_call("request", lambda: pred.predict_pixels(frame, threshold=0.0), top)
+
+
+def profile_call(label: str, fn, top: int = 15) -> None:
+    """One call of `fn` under torch.profiler: the device's busy share of the
+    wall time and the kernels that take the most device time (profiler
+    overhead included in the wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pred.predict_pixels(frame, threshold=0.0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(lambda: pred.predict_pixels(frame, threshold=0.0))
+        _, wall = _timed(fn)
     # Device-side events only (kernels and copies): the operators that launch
-    # them report the same device time again.
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # them report the same device time again, and the optimizer's annotation
+    # spans its kernels on the device timeline.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: request wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
+    log(f"profile: {label} wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device events")
-    port = {m.group(0): e for e in kernels
-            for m in [re.search(r"deform_sample_kernel|mca_split_kernel|mca_combine_kernel", e.key)] if m}
+    names = r"deform_sample_bwd_kernel|deform_sample_kernel|mca_split_kernel|mca_combine_kernel|mca_bwd_dq_kernel|mca_bwd_kernel"
+    port = {m.group(0): e for e in kernels for m in [re.search(names, e.key)] if m}
     log(f"profile: port kernels {sum(e.self_device_time_total for e in port.values()) / 1e3:.3f} ms of device "
         "time: " + ", ".join(f"{k} {e.self_device_time_total / 1e3:.3f} ms {e.count}x" for k, e in port.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -391,7 +562,7 @@ def run_slice(seed: int, rng, profile: bool = False) -> dict:
         per_request.append(ms)
         log(f"slice request {i}: {ms:.2f} ms, {len(res['segments_info'])} segments, "
             f"masks {res['segmentation'].shape}, launches {delta}")
-        if delta != {"deformable": 6, "masked_attention": 9}:
+        if delta != {"deformable": 6, "masked_attention": 9, "deformable_bwd": 0, "masked_attention_bwd": 0}:
             raise AssertionError(f"request {i} launched {delta}; expected 6 deformable and 9 masked-attention")
     launches = dict(K.LAUNCHES)
 
@@ -433,11 +604,121 @@ def run_slice(seed: int, rng, profile: bool = False) -> dict:
     return launches
 
 
+def run_train(seed: int, rng, profile: bool = False):
+    """Phase 6: 3 optimizer steps of the full-width 0.4.0 model through the kernels
+    (and with `profile` a fourth under the profiler). Returns the launch counts
+    of the 3 steps, the step-0 weights (on the CPU) and the batch."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops import matcher
+    from rgbdseg_torch.train.arguments import TrainingArguments
+    from rgbdseg_torch.train.trainer import TrainBatch, build_training, train_step
+
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    args = TrainingArguments(learning_rate=1e-4, weight_decay=0.05, per_device_train_batch_size=TRAIN_B)
+    model, opt = build_training(cfg, args, num_examples=3 * TRAIN_B, seed=seed)
+    step0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    frames, masks = zip(*(synthetic_frame(rng, boxes=TRAIN_T, with_masks=True) for _ in range(TRAIN_B)))
+    classes = rng.randint(0, cfg.num_labels, (TRAIN_B, TRAIN_T))
+    batch = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in
+                         (np.stack(frames), np.stack(masks), classes, np.ones((TRAIN_B, TRAIN_T), bool))))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    expected = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    for step in range(3):
+        before = dict(K.LAUNCHES)
+        (loss, per_layer, gnorm), ms = _timed(lambda: train_step(model, opt, batch, gen))
+        delta = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        loss, gnorm = loss.item(), gnorm.item()
+        log(f"train step {step}: {ms:.2f} ms, matcher host {matcher.STATS['solve_ms']:.2f} ms solve + "
+            f"{matcher.STATS['copy_ms']:.2f} ms copy (waits for the forward), loss {loss:.6f}, grad norm "
+            f"{gnorm:.6f}, final-layer losses {[round(v[-1].item(), 5) for v in per_layer.values()]}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {delta}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"step {step}: loss {loss}, grad norm {gnorm}")
+        if delta != expected:
+            raise AssertionError(f"step {step} launched {delta}; expected {expected}")
+    attn = model.pixel_level_module.pixel_decoder.layer0.self_attn
+    cross = model.transformer_module.layer0.cross_attn
+    for name, mod in (("value_proj", attn.value_proj), ("sampling_offsets", attn.sampling_offsets),
+                      ("attention_weights", attn.attention_weights), ("decoder q_proj", cross.q_proj),
+                      ("decoder k_proj", cross.k_proj), ("decoder v_proj", cross.v_proj)):
+        if mod.weight.grad is None or not mod.weight.grad.abs().sum().item() > 0:
+            raise AssertionError(f"no gradient reached {name} through the kernels")
+    log(f"train: {sum(p.numel() for p in model.parameters())} parameters, batch {TRAIN_B} x {TRAIN_T} instances; "
+        "gradients reach value_proj, sampling_offsets, attention_weights and the decoder q/k/v projections")
+    launches = dict(K.LAUNCHES)
+    if profile:
+        profile_call("train step", lambda: train_step(model, opt, batch, gen))
+    return launches, step0, batch
+
+
+def step0_gpu_vs_cpu(state, batch) -> None:
+    """Phase 7: loss and gradient norm of one forward and backward from the step-0
+    weights on the GPU and on a CPU copy, dropout and drop path off, the same
+    point coordinates injected into the criterion on both."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+    from rgbdseg_torch.models.stochastic import Dropout
+    from rgbdseg_torch.models.swin import SwinBlock
+    from rgbdseg_torch.ops import losses
+    from rgbdseg_torch.train.optim import global_norm
+
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    draws = {}
+
+    def same_uniform(generator, shape):
+        if tuple(shape) not in draws:
+            draws[tuple(shape)] = torch.from_numpy(
+                np.random.RandomState(len(draws)).uniform(0, 1, shape).astype(np.float32))
+        return draws[tuple(shape)]
+
+    def run(device):
+        model = Mask2FormerRGBD(cfg)
+        model.load_state_dict(state, strict=True)
+        model.to(device).train()
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+            elif isinstance(m, SwinBlock):
+                m.drop_path_rate = 0.0
+        b = [t.to(device) for t in batch]
+        out = model(b[0])
+        loss, _ = losses.mask2former_loss(cfg, out, *b[1:], None)
+        loss.backward()
+        norm = global_norm([p.grad for p in model.parameters() if p.grad is not None])
+        flips = [(a < 0) for a in out.aux_mask_logits]
+        return loss.item(), norm.item(), [f.cpu() for f in flips]
+
+    original = losses._uniform
+    losses._uniform = same_uniform
+    try:
+        gpu = run("cuda")
+        t = time.perf_counter()
+        cpu = run("cpu")
+        cpu_s = time.perf_counter() - t
+    finally:
+        losses._uniform = original
+    flipped = sum((a != b).sum().item() for a, b in zip(gpu[2], cpu[2]))
+    dl = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    dn = abs(gpu[1] - cpu[1]) / abs(cpu[1])
+    log(f"step0 GPU vs CPU: loss {gpu[0]:.7f} / {cpu[0]:.7f} (rel {dl:.2e}, tol {STEP0_LOSS_RTOL:g}), grad norm "
+        f"{gpu[1]:.7f} / {cpu[1]:.7f} (rel {dn:.2e}, tol {STEP0_GNORM_RTOL:g}); {flipped} of the aux mask-logit "
+        f"signs differ; CPU forward and backward {cpu_s:.1f} s")
+    if not (dl <= STEP0_LOSS_RTOL and dn <= STEP0_GNORM_RTOL):
+        raise AssertionError("step 0 on GPU and CPU disagree")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one request: device busy share and the top kernels")
+                    help="also profile one request and one train step: device busy share and the top kernels")
     args = ap.parse_args(argv)
 
     repo = Path(__file__).resolve().parent
@@ -469,12 +750,20 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     dev = torch.device("cuda")
     rows = check_kernels(rng, dev)
+    rows.update(check_backward_kernels(rng, dev))
     launches = run_slice(args.seed, rng, args.profile)
+    train_launches, step0, batch = run_train(args.seed, rng, args.profile)
+    step0_gpu_vs_cpu(step0, batch)
+    launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
 
     meta = {
         "deform_sample_levels": ("rgbdseg_torch/csrc/deformable.cu", "rgbdseg_tpu/ops/kernels/deformable.py:337", "deformable"),
         "masked_cross_attention": ("rgbdseg_torch/csrc/masked_attention.cu",
                                    "rgbdseg_tpu/ops/kernels/masked_attention.py:148", "masked_attention"),
+        "deform_sample_levels_bwd": ("rgbdseg_torch/csrc/deformable_bwd.cu",
+                                     "rgbdseg_tpu/ops/kernels/deformable.py:349", "deformable_bwd"),
+        "masked_cross_attention_bwd": ("rgbdseg_torch/csrc/masked_attention_bwd.cu",
+                                       "rgbdseg_tpu/ops/kernels/masked_attention.py:163", "masked_attention_bwd"),
     }
     kernels = []
     for name, (source, replaces, key) in meta.items():

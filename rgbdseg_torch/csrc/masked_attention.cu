@@ -49,7 +49,10 @@
 //    Scores are kept in log2 units (q times log2(e)), so exp2 replaces exp.
 //  - Each block writes (running max, running sum, unnormalised accumulator) per
 //    row to a scratch tensor; the combine kernel (one warp per row) rescales by
-//    exp2(m_s - max_s m_s), sums over the splits and normalises.
+//    exp2(m_s - max_s m_s), sums over the splits and normalises. Where the caller
+//    asks for it, the combine kernel also writes each row's log-sum-exp of the
+//    masked scores (natural log), which the backward (masked_attention_bwd.cu)
+//    uses to recompute the probabilities.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,6 +63,7 @@ namespace {
 constexpr float kNegInf = -1e9f;  // the JAX twin's additive mask value
 constexpr float kInit = -1e30f;   // running max before the first tile
 constexpr float kLog2e = 1.4426950408889634f;  // scores are kept in log2 units: exp2 is cheaper
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTileK = 64;
 constexpr int kRowsPerWarp = 16;
 constexpr int kMaxRows = 128;  // query rows of one block
@@ -320,7 +324,7 @@ constexpr int kCombineWarps = 8;
 template <typename T, int HD>
 __global__ void __launch_bounds__(32 * kCombineWarps) mca_combine_kernel(
     const float* __restrict__ part_o, const float* __restrict__ part_ml, T* __restrict__ out,
-    long long rows, int splits) {
+    float* __restrict__ lse, long long rows, int splits) {
   constexpr int kPerLane = (HD + 31) / 32;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
@@ -354,11 +358,12 @@ __global__ void __launch_bounds__(32 * kCombineWarps) mca_combine_kernel(
 #pragma unroll
   for (int c = 0; c < kPerLane; ++c)
     if (lane + 32 * c < HD) store(out + row * HD + lane + 32 * c, acc[c] / l);
+  if (lse != nullptr && lane == 0) lse[row] = (m + log2f(l)) * kLn2;
 }
 
 template <typename T, int HD>
 int launch_typed(const void* q, const void* k, const void* v, const void* mask, const void* all_blocked,
-                 void* out, void* part_o, void* part_ml, int b, int nh, int nq, int nk,
+                 void* out, void* part_o, void* part_ml, void* lse, int b, int nh, int nq, int nk,
                  int tiles_per_split, int splits, cudaStream_t s) {
   const int qtiles = (nq + kMaxRows - 1) / kMaxRows;
   const int per_tile = (nq + qtiles - 1) / qtiles;
@@ -381,30 +386,31 @@ int launch_typed(const void* q, const void* k, const void* v, const void* mask, 
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)b * nh * nq;
   mca_combine_kernel<T, HD><<<(unsigned)((rows + kCombineWarps - 1) / kCombineWarps), 32 * kCombineWarps, 0, s>>>(
-      (const float*)part_o, (const float*)part_ml, (T*)out, rows, splits);
+      (const float*)part_o, (const float*)part_ml, (T*)out, (float*)lse, rows, splits);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* mask,
-                const void* all_blocked, void* out, void* part_o, void* part_ml, int b, int nh,
+                const void* all_blocked, void* out, void* part_o, void* part_ml, void* lse, int b, int nh,
                 int nq, int nk, int tps, int splits, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch_typed<T, 16>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
-    case 32: return launch_typed<T, 32>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
-    case 64: return launch_typed<T, 64>(q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk, tps, splits, s);
+    case 16: return launch_typed<T, 16>(q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk, tps, splits, s);
+    case 32: return launch_typed<T, 32>(q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk, tps, splits, s);
+    case 64: return launch_typed<T, 64>(q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk, tps, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// part_o: float32 scratch of b*nh*nq*splits*hd; part_ml: of b*nh*nq*splits*2.
-// The keys are cut into `splits` chunks of `tiles_per_split` 64-key tiles
+// part_o: float32 scratch of b*nh*nq*splits*hd; part_ml: of b*nh*nq*splits*2;
+// lse: float32 (b, nh, nq) for the rows' log-sum-exp, or null. The keys are
+// cut into `splits` chunks of `tiles_per_split` 64-key tiles
 // (splits == ceil(ceil(nk / 64) / tiles_per_split)). k and v must be 16-byte aligned.
 extern "C" int rgbd_masked_cross_attention(
     const void* q, const void* k, const void* v, const void* mask, const void* all_blocked,
-    void* out, void* part_o, void* part_ml, int b, int nh, int nq, int nk, int hd,
+    void* out, void* part_o, void* part_ml, void* lse, int b, int nh, int nq, int nk, int hd,
     int tiles_per_split, int splits, int bf16, void* stream) {
   if (b == 0 || nh == 0 || nq == 0) return (int)cudaSuccess;
   const int ntiles = (nk + kTileK - 1) / kTileK;
@@ -413,8 +419,8 @@ extern "C" int rgbd_masked_cross_attention(
   if (((uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk,
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk,
                                       tiles_per_split, splits, s);
-  return dispatch_hd<float>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, b, nh, nq, nk,
+  return dispatch_hd<float>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk,
                             tiles_per_split, splits, s);
 }

@@ -1,12 +1,16 @@
-"""Depth-fusion modules of version 0.4.0, eval forward
+"""Depth-fusion modules of version 0.4.0
 (counterpart of `rgbdseg_tpu/models/fusion.py`): the E-DSAM ratio predictor,
 the DSAM module and cascade, and the DGGM residual.
 
 Module boundaries are channels-last (B, H, W, C) like the JAX package; the
-convolutions run NCHW inside. BatchNorm is torch's BatchNorm2d in eval mode
-(running statistics, eps 1e-5), which is what the JAX `TorchBatchNorm`
-reproduces; the JAX package's folding of BN into the conv weights is a TPU
-speed trick that the port does not need.
+convolutions run NCHW inside. BatchNorm is torch's BatchNorm2d (eps 1e-5): in
+eval mode it normalises with the running statistics; in train mode with the
+batch's (biased variance) and it updates the running statistics with momentum
+0.1 and the unbiased variance. That is what the JAX `TorchBatchNorm`
+reproduces. The JAX package's folding of BN into the conv weights is a TPU
+speed trick that the port does not need. In train mode the ratio predictor's
+MLP applies dropout 0.3 after fc0 and 0.2 after fc1, with masks from the
+caller's generator.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 from ..ops.depth_decomp import dsam_region_masks, dsam_region_masks_pooled
 from ..ops.image import to_grayscale
 from ..ops.resize import adaptive_avg_pool2d, adaptive_max_pool2d, resize_bilinear, resize_nearest
+from .stochastic import Dropout
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -50,11 +55,13 @@ class EnhancedDepthImageRatioPredictor(nn.Module):
         self.extract_conv1 = nn.Conv2d(256, 512, 3, padding=1)
         self.extract_bn1 = nn.BatchNorm2d(512, eps=1e-5)
         self.fc0 = nn.Linear(512, 128)
+        self.dropout0 = Dropout(0.3)
         self.fc1 = nn.Linear(128, 64)
+        self.dropout1 = Dropout(0.2)
         self.fc2 = nn.Linear(64, 32)
         self.fc3 = nn.Linear(32, 1)
 
-    def forward(self, depth: torch.Tensor) -> torch.Tensor:
+    def forward(self, depth: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = _nchw(depth)
         x = torch.cat([self.scale0_conv(x), self.scale1_conv(x), self.scale2_conv(x)], dim=1)
         x = F.relu(self.scales_bn(x))
@@ -65,8 +72,8 @@ class EnhancedDepthImageRatioPredictor(nn.Module):
         x = _nchw(adaptive_avg_pool2d(_nhwc(x), (4, 4)))
         x = F.relu(self.extract_bn1(self.extract_conv1(x)))
         x = x.mean(dim=(2, 3))
-        x = F.relu(self.fc0(x))
-        x = F.relu(self.fc1(x))
+        x = self.dropout0(F.relu(self.fc0(x)), generator)
+        x = self.dropout1(F.relu(self.fc1(x)), generator)
         x = F.relu(self.fc2(x))
         raw = self.fc3(x)
         return self.out_min + (self.out_max - self.out_min) * torch.sigmoid(raw)

@@ -5,6 +5,10 @@ The port builds version 0.0.0 (RGB, stock Mask2Former) and 0.4.0 (the paper's
 final model: E-DSAM ratio + DSAM cascade + DGGM residual, both branches on
 detached backbone maps and summed). The other versions raise
 NotImplementedError; ROADMAP.md queues them.
+
+`model.train()` is the JAX package's `deterministic=False`: drop path in the
+backbone, dropout in the E-DSAM ratio predictor (both drawn from the
+`generator` passed to `forward`) and BatchNorm on batch statistics.
 """
 
 from __future__ import annotations
@@ -56,14 +60,14 @@ class PixelLevelModule(nn.Module):
             self.dggm = DepthGradientInjectionResidual(channels)
         self.pixel_decoder = PixelDecoder(cfg, channels)
 
-    def forward(self, pixel_values: torch.Tensor):
+    def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None):
         cfg, spec, fusion = self.cfg, self.spec, self.fusion
         if pixel_values.shape[-1] != spec.total:
             raise ValueError(f"version {cfg.version} expects {spec.total} channels, got {pixel_values.shape[-1]}")
-        color_maps = list(self.encoder(_ch(pixel_values, spec, "rgb")))
+        color_maps = list(self.encoder(_ch(pixel_values, spec, "rgb"), generator))
         if fusion.two_branch_sum:
             # 0.4.0: both branches on detached copies of the backbone maps, summed.
-            ratio = self.ratio_predictor(_ch(pixel_values, spec, "depth"))[:, 0]
+            ratio = self.ratio_predictor(_ch(pixel_values, spec, "depth"), generator)[:, 0]
             detached = [m.detach() for m in color_maps]
             branch1 = self.dsam_cascade(list(detached), _ch(pixel_values, spec, "depth"), ratio)
             branch2 = self.dggm(
@@ -86,8 +90,8 @@ class Mask2FormerRGBD(nn.Module):
         self.pixel_level_module = PixelLevelModule(cfg)
         self.transformer_module = TransformerModule(cfg)
 
-    def forward(self, pixel_values: torch.Tensor) -> ModelOutputs:
-        mask_features, multi_scale = self.pixel_level_module(pixel_values)
+    def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None) -> ModelOutputs:
+        mask_features, multi_scale = self.pixel_level_module(pixel_values, generator)
         class_logits, mask_logits = self.transformer_module(multi_scale, mask_features)
         return ModelOutputs(
             class_queries_logits=class_logits[-1],

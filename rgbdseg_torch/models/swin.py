@@ -1,4 +1,4 @@
-"""Swin Transformer backbone (Swin-T defaults), eval forward
+"""Swin Transformer backbone (Swin-T defaults)
 (counterpart of `rgbdseg_tpu/models/swin.py`).
 
 Input (B, H, W, C) channels-last -> 4 channels-last feature maps at strides
@@ -6,7 +6,9 @@ Input (B, H, W, C) channels-last -> 4 channels-last feature maps at strides
 patch-merging and passed through a per-stage LayerNorm (eps 1e-5). HF
 `always_partition` semantics: the window and shift are not shrunk for small
 maps; maps are zero-padded to window multiples. The shifted-window mask adds
--100 between regions. Drop-path is a training-only op and is absent here.
+-100 between regions. In train mode each block's two residual branches go
+through drop path, its rate scheduled linearly over all blocks from 0 to
+`drop_path_rate` (0.3 for Swin-T), with masks from the caller's generator.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from .stochastic import drop_path
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -98,10 +101,11 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, cfg: SwinConfig, dim: int, num_heads: int, shift: int):
+    def __init__(self, cfg: SwinConfig, dim: int, num_heads: int, shift: int, drop_path_rate: float = 0.0):
         super().__init__()
         self.window_size = cfg.window_size
         self.shift = shift
+        self.drop_path_rate = drop_path_rate
         eps = cfg.layer_norm_eps
         self.norm1 = nn.LayerNorm(dim, eps=eps)
         self.attention = WindowAttention(dim, num_heads, cfg.window_size, cfg.qkv_bias)
@@ -110,9 +114,10 @@ class SwinBlock(nn.Module):
         self.mlp_fc1 = nn.Linear(dim, hidden)
         self.mlp_fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
+        rate = self.drop_path_rate
         shortcut = x
         x = self.norm1(x)
         pad_h = (ws - h % ws) % ws
@@ -127,9 +132,9 @@ class SwinBlock(nn.Module):
         x = window_unpartition(self.attention(window_partition(x, ws), attn_mask), ws, hp, wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w]
+        x = shortcut + drop_path(x[:, :h, :w], rate, self.training, generator)
         y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
-        return x + y
+        return x + drop_path(y, rate, self.training, generator)
 
 
 class PatchMerging(nn.Module):
@@ -156,16 +161,18 @@ class SwinBackbone(nn.Module):
         self.patch_embed = nn.Conv2d(in_channels or cfg.num_channels, cfg.embed_dim, ps, stride=ps)
         self.patch_norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps) if cfg.patch_norm else None
         dim = cfg.embed_dim
+        rates = iter(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)))
         for stage in range(cfg.num_layers):
             for blk in range(cfg.depths[stage]):
                 shift = 0 if blk % 2 == 0 else cfg.window_size // 2
-                self.add_module(f"stage{stage}_block{blk}", SwinBlock(cfg, dim, cfg.num_heads[stage], shift))
+                block = SwinBlock(cfg, dim, cfg.num_heads[stage], shift, float(next(rates)))
+                self.add_module(f"stage{stage}_block{blk}", block)
             self.add_module(f"out_norm{stage}", nn.LayerNorm(dim, eps=cfg.layer_norm_eps))
             if stage < cfg.num_layers - 1:
                 self.add_module(f"downsample{stage}", PatchMerging(cfg, dim))
                 dim *= 2
 
-    def forward(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None) -> tuple[torch.Tensor, ...]:
         cfg = self.cfg
         x = pixel_values
         h, w = x.shape[1:3]
@@ -180,7 +187,7 @@ class SwinBackbone(nn.Module):
         features = []
         for stage in range(cfg.num_layers):
             for blk in range(cfg.depths[stage]):
-                x = getattr(self, f"stage{stage}_block{blk}")(x)
+                x = getattr(self, f"stage{stage}_block{blk}")(x, generator)
             features.append(getattr(self, f"out_norm{stage}")(x))
             if stage < cfg.num_layers - 1:
                 x = getattr(self, f"downsample{stage}")(x)

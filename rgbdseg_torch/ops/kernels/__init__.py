@@ -7,11 +7,13 @@ flags, so an edited source rebuilds) and binds it with ctypes. `build_all()`
 starts one nvcc per source, all together, and waits for them.
 
 The kernel modules (`deformable`, `masked_attention`) each hold the plain
-PyTorch version of their function, the wrapper, and a source note. A wrapper
-takes the plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises. `LAUNCHES` counts kernel launches per wrapper: a plain
-integer each, bumped only where the kernel is launched (once per call, also
-where one call is two launches, as K3's split and combine are).
+PyTorch versions of their function and its gradient, the wrapper (a
+`torch.autograd.Function` whose forward and backward are kernels), and a source
+note. A wrapper takes the plain versions only for CPU tensors; for CUDA tensors
+it launches the kernel or raises. `LAUNCHES` counts kernel launches per entry
+point, the backward ones (`*_bwd`) apart from the forward ones: a plain integer
+each, bumped only where the kernel is launched (once per call, also where one
+call is two launches, as K3's split and combine are).
 """
 
 from __future__ import annotations
@@ -34,19 +36,27 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Kernel name -> C entry point and its ctypes argument types.
+# Kernel name (its source's stem) -> C entry point and its ctypes argument types.
 _SIGNATURES = {
     "deformable": (
         "rgbd_deform_sample",
         [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     ),
+    "deformable_bwd": (
+        "rgbd_deform_sample_bwd",
+        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    ),
     "masked_attention": (
         "rgbd_masked_cross_attention",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    ),
+    "masked_attention_bwd": (
+        "rgbd_masked_cross_attention_bwd",
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
 }
 
-LAUNCHES = {"deformable": 0, "masked_attention": 0}
+LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}

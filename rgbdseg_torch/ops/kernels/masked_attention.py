@@ -1,17 +1,25 @@
 """Mask2Former masked cross-attention (kernel K3).
 
 Replaces `rgbdseg_tpu/ops/kernels/masked_attention.py::masked_cross_attention`
-(`_mca_pallas` / `_mca_kernel`). The CUDA kernel
-(`rgbdseg_torch/csrc/masked_attention.cu`) splits the keys: one block per
-(batch, head, chunk of 64-key tiles) owns every query, runs a flash-style
-online softmax over its tiles (staged with cp.async, double-buffered, register
-tiled on the f32 FMA units) with the mask test `m < 0 && !all_blocked`
-evaluated inside the kernel, and writes partial (max, sum, accumulator) rows;
-a second kernel combines them. A call is those two launches and counts once.
+(`_mca_pallas` / `_mca_kernel`) and its backward (`_bwd`, the VJP of the jnp
+twin). The forward CUDA kernel (`rgbdseg_torch/csrc/masked_attention.cu`)
+splits the keys: one block per (batch, head, chunk of 64-key tiles) owns every
+query, runs a flash-style online softmax over its tiles (staged with cp.async,
+double-buffered, q.k and p.v as 3xTF32 `mma.sync` on the tensor cores) with the
+mask test `m < 0 && !all_blocked` evaluated inside the kernel, and writes
+partial (max, sum, accumulator) rows; a second kernel combines them and writes
+each row's log-sum-exp. The backward kernel
+(`rgbdseg_torch/csrc/masked_attention_bwd.cu`) reuses that split: per 64-key
+tile it recomputes the probabilities from the log-sum-exp under the same mask
+test, writes dK and dV of its keys and a partial dQ, which a second kernel sums
+over the splits. Each call (forward or backward) is two launches and counts
+once.
 
 `masked_cross_attention` keeps the JAX signature: q (B, H, Q, hd) pre-scaled by
 hd**-0.5; k, v (B, H, K, hd); mask_logits (B, Q, K) float32 raw logits;
-all_blocked (B, Q) bool. Returns (B, H, Q, hd) in q's dtype. Forward only.
+all_blocked (B, Q) bool. Returns (B, H, Q, hd) in q's dtype. Gradients reach q,
+k and v; the masks get none. The plain backward is torch's autograd of the
+plain forward, which has no tie convention to match.
 """
 
 from __future__ import annotations
@@ -47,10 +55,16 @@ def _split_plan(b: int, nh: int, nq: int, nk: int, device_index: int) -> tuple[i
     return tiles_per_split, -(-ntiles // tiles_per_split)
 
 
-def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
-    """K3 wrapper: the plain version for CPU tensors, the CUDA kernels for CUDA ones."""
-    if not q.is_cuda:
-        return masked_cross_attention_plain(q, k, v, mask_logits, all_blocked)
+def masked_cross_attention_plain_bwd(q, k, v, mask_logits, all_blocked, grad_out):
+    """Plain gradient (d q, d k, d v): torch's autograd of the plain version."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = masked_cross_attention_plain(*qkv, mask_logits, all_blocked)
+        return torch.autograd.grad(out, qkv, grad_out)
+
+
+def _check_launch(q, k, v, mask_logits, all_blocked):
+    """Shapes, dtypes and layouts the K3 kernels take; returns (B, H, Q, K, hd, tiles per split, splits)."""
     b, nh, nq, hd = q.shape
     nk = k.shape[2]
     if k.shape != (b, nh, nk, hd) or v.shape != k.shape:
@@ -70,8 +84,14 @@ def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
     check_cuda_tensor(v, "v", dtypes)
     check_cuda_tensor(mask_logits, "mask_logits", (torch.float32,))
     check_cuda_tensor(all_blocked, "all_blocked", (torch.bool,))
-    tiles_per_split, splits = _split_plan(b, nh, nq, nk, q.get_device())
+    return (b, nh, nq, nk, hd, *_split_plan(b, nh, nq, nk, q.get_device()))
+
+
+def _launch(q, k, v, mask_logits, all_blocked):
+    """The forward kernels; returns the output and each row's log-sum-exp (B, H, Q) float32."""
+    b, nh, nq, nk, hd, tiles_per_split, splits = _check_launch(q, k, v, mask_logits, all_blocked)
     out = torch.empty_like(q)
+    lse = torch.empty(b, nh, nq, dtype=torch.float32, device=q.device)
     # The splits' partials: accumulators (rows, splits, hd), then (max, sum) pairs.
     parts = b * nh * nq * splits
     scratch = torch.empty(parts * (hd + 2), dtype=torch.float32, device=q.device)
@@ -79,6 +99,51 @@ def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
         "masked_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(),
         all_blocked.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + parts * hd * 4,
-        b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
+        lse.data_ptr(), b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
     )
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, mask_logits, all_blocked, out, lse, grad_out):
+    """The backward kernels; returns (d q, d k, d v) in q's dtype."""
+    b, nh, nq, nk, hd, tiles_per_split, splits = _check_launch(q, k, v, mask_logits, all_blocked)
+    grad_out = grad_out.to(q.dtype).contiguous()
+    check_cuda_tensor(out, "out", (q.dtype,))
+    check_cuda_tensor(lse, "lse", (torch.float32,))
+    if grad_out.shape != out.shape or lse.shape != (b, nh, nq):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} / lse {tuple(lse.shape)} must be "
+                         f"{tuple(out.shape)} / ({b}, {nh}, {nq})")
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    dq_part = torch.empty(b * nh * nq * splits * hd, dtype=torch.float32, device=q.device)
+    launch(
+        "masked_attention_bwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(), all_blocked.data_ptr(),
+        out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dq_part.data_ptr(), b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
+    )
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class MaskedCrossAttention(torch.autograd.Function):
+    """K3 on the card, forward and backward; the forward saves each row's log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_logits, all_blocked):
+        out, lse = _launch(q, k, v, mask_logits, all_blocked)
+        ctx.save_for_backward(q, k, v, mask_logits, all_blocked, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        dq, dk, dv = _launch_bwd(*ctx.saved_tensors, grad_out)
+        return dq, dk, dv, None, None
+
+
+def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
+    """K3 wrapper: the plain version (and its autograd) for CPU tensors, the
+    CUDA kernels forward and backward for CUDA ones."""
+    if not q.is_cuda:
+        return masked_cross_attention_plain(q, k, v, mask_logits, all_blocked)
+    return MaskedCrossAttention.apply(q, k, v, mask_logits, all_blocked)

@@ -62,7 +62,10 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 def _adaptive(fn, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     *lead, in_h, in_w, c = x.shape
-    y = fn(x.reshape(-1, in_h, in_w, c).permute(0, 3, 1, 2), size)
+    # NCHW-contiguous input: on channels-last strides the CUDA average pool takes
+    # its NHWC kernel, 30.8 ms for the E-DSAM pool of a 480x640 train batch
+    # against 0.8 ms for the NCHW one.
+    y = fn(x.reshape(-1, in_h, in_w, c).permute(0, 3, 1, 2).contiguous(), size)
     return y.permute(0, 2, 3, 1).reshape(*lead, *size, c)
 
 

@@ -1,5 +1,5 @@
 """Weights for the port: the flax variable tree mapped onto the port's
-`state_dict`, and the port's own seeded initialisation.
+`state_dict` and back, and the port's own seeded initialisation.
 
 The port's module names follow the flax names (`pixel_level_module.encoder.
 stage0_block0.attention.query`, ...), so the map is mechanical:
@@ -9,6 +9,8 @@ stage0_block0.attention.query`, ...), so the map is mechanical:
 - BatchNorm `batch_stats` `mean` / `var` -> `running_mean` / `running_var`
   (plus torch's `num_batches_tracked`);
 - any other leaf (level embeddings, queries, relative-position tables) as is.
+`to_flax` is the inverse map (without `num_batches_tracked`), so that the
+port's parameters and gradients compare leaf by leaf with the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,6 +53,36 @@ def from_flax(params: Mapping, batch_stats: Mapping | None = None) -> dict[str, 
         sd[f"{mod}.{name}"] = torch.from_numpy(arr.copy())
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def to_flax(tensors: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """Inverse of `from_flax`: a state_dict, or any tensors keyed by parameter
+    name (gradients, say), -> (params, batch_stats) as nested dicts of numpy arrays."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: str, arr: np.ndarray) -> None:
+        *mods, leaf = path.split(".")
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = arr
+
+    for name, t in tensors.items():
+        mod, _, leaf = name.rpartition(".")
+        arr = t.detach().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            put(stats, f"{mod}.{leaf[len('running_'):]}", arr.copy())
+        elif leaf == "num_batches_tracked":
+            continue
+        elif leaf == "weight" and arr.ndim == 2:
+            put(params, f"{mod}.kernel", arr.T.copy())
+        elif leaf == "weight" and arr.ndim == 4:
+            put(params, f"{mod}.kernel", arr.transpose(2, 3, 1, 0).copy())
+        elif leaf == "weight":
+            put(params, f"{mod}.scale", arr.copy())
+        else:
+            put(params, name, arr.copy())
+    return params, stats
 
 
 @torch.no_grad()

@@ -98,7 +98,7 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     torch.testing.assert_close(
         masked_cross_attention(q, k, vv, m, ab), masked_cross_attention_plain(q, k, vv, m, ab)
     )
-    assert LAUNCHES == {"deformable": 0, "masked_attention": 0}
+    assert set(LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("version", ["0.0.0", "0.4.0"])

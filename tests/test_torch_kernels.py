@@ -20,12 +20,15 @@ from rgbdseg_torch.models.pixel_decoder import initial_locations
 from rgbdseg_torch.ops.kernels.deformable import (
     deform_sample_level,
     deform_sample_level_plain,
+    deform_sample_level_plain_bwd,
     deform_sample_levels,
     deform_sample_levels_plain,
+    deform_sample_levels_plain_bwd,
 )
 from rgbdseg_torch.ops.kernels.masked_attention import (
     masked_cross_attention,
     masked_cross_attention_plain,
+    masked_cross_attention_plain_bwd,
 )
 
 
@@ -222,7 +225,7 @@ def test_cuda_kernels_match_plain():
             atol=2e-2, rtol=2e-2,
         )
     torch.cuda.synchronize()
-    assert LAUNCHES == {"deformable": 5, "masked_attention": 6}
+    assert LAUNCHES == {"deformable": 5, "masked_attention": 6, "deformable_bwd": 0, "masked_attention_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -290,4 +293,69 @@ def test_cuda_mca_matches_plain(nk):
                 masked_cross_attention(qb, kb, vb, m, ab).float(),
                 masked_cross_attention_plain(qb, kb, vb, m, ab).float(), atol=2e-2, rtol=2e-2,
             )
+    torch.cuda.synchronize()
+
+
+def _grads(fn, inputs, grad_out):
+    """Gradients of fn(*inputs) for grad_out, through the wrappers' autograd."""
+    inputs = [t.detach().requires_grad_() for t in inputs]
+    fn(*inputs).backward(grad_out)
+    return [t.grad for t in inputs]
+
+
+def _assert_grad_close(got, ref, rel=1e-5, joint=False):
+    """Within rel x the largest |ref| of each gradient, or with `joint` of all of them."""
+    scales = [r.float().abs().max().item() for r in ref]
+    for g, r, scale in zip(got, ref, scales):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= rel * (max(scales) if joint else scale), (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["model", "random", "integer"])
+def test_cuda_deform_backward_matches_plain(geometry):
+    """The K1 backward kernel (through the autograd Function) against the plain
+    backward at the 480x640 levels, B=2, within 1e-5 x max |ref| for each of
+    d value, d locations and d weights. d value is scattered with float atomics,
+    whose order changes from run to run, so it differs from the plain sum in
+    the last bits only. "integer" puts every sample on a pixel centre (the JAX
+    tent subgradient); the per-level entry is checked on integer coordinates."""
+    _need_cuda()
+    value, loc, weights = _levels_inputs(LEVELS_480x640, nh=8, geometry="random" if geometry == "random" else "model")
+    if geometry == "integer":
+        rng = np.random.RandomState(7)
+        for lvl, (h, w) in enumerate(LEVELS_480x640):
+            loc[:, :, :, lvl, :, 0] = (rng.randint(-1, w + 1, loc.shape[:3] + (4,)) + np.float32(0.5)) / np.float32(w)
+            loc[:, :, :, lvl, :, 1] = (rng.randint(-1, h + 1, loc.shape[:3] + (4,)) + np.float32(0.5)) / np.float32(h)
+    value, loc, weights = (torch.from_numpy(a).cuda() for a in (value, loc, weights))
+    g = torch.randn(value.shape[0], value.shape[1], 8 * 32, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    reset_launches()
+    got = _grads(lambda a, b, c: deform_sample_levels(a, LEVELS_480x640, b, c), (value, loc, weights), g)
+    assert LAUNCHES["deformable_bwd"] == 1
+    _assert_grad_close(got, deform_sample_levels_plain_bwd(value, LEVELS_480x640, loc, weights, g))
+    gx, gy, aw, v = (torch.from_numpy(a).cuda() for a in _tent_integer_coords())
+    g1 = torch.randn(gx.shape[0], gx.shape[1], v.shape[-1], device="cuda")
+    got = _grads(lambda a, b, c, d: deform_sample_level(a, b, c, d, 9, 11), (gx, gy, aw, v), g1)
+    _assert_grad_close(got, deform_sample_level_plain_bwd(gx, gy, aw, v, 9, 11, g1))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [1, 63, 65, 300, 1200, 4800])
+def test_cuda_mca_backward_matches_plain(nk):
+    """The K3 backward kernels against autograd of the plain version, Q in (1,
+    100, 129) and hd in (16, 32, 64), all-blocked rows and a row unblocked only
+    at its last key included: d q, d k, d v within 1e-5 x the largest |ref| of
+    the three (f32 FMAs in another order, probabilities from the forward's
+    log-sum-exp; with K=1, d q and d k are exactly 0 in the plain version and
+    rounding-sized in the kernel)."""
+    _need_cuda()
+    for nq in (1, 100, 129):
+        for hd in (16, 32, 64):
+            q, k, v, m, ab = (torch.from_numpy(a).cuda() for a in _mca_edge_inputs(nq, nk, hd))
+            g = torch.randn(q.shape, device="cuda")
+            reset_launches()
+            got = _grads(lambda a, b, c: masked_cross_attention(a, b, c, m, ab), (q, k, v), g)
+            assert LAUNCHES["masked_attention_bwd"] == 1
+            _assert_grad_close(got, masked_cross_attention_plain_bwd(q, k, v, m, ab, g), joint=True)
     torch.cuda.synchronize()
