@@ -358,7 +358,7 @@ __global__ void __launch_bounds__(32 * kCombineWarps) mca_combine_kernel(
 #pragma unroll
   for (int c = 0; c < kPerLane; ++c)
     if (lane + 32 * c < HD) store(out + row * HD + lane + 32 * c, acc[c] / l);
-  if (lse != nullptr && lane == 0) lse[row] = (m + log2f(l)) * kLn2;
+  if (lane == 0) lse[row] = (m + log2f(l)) * kLn2;
 }
 
 template <typename T, int HD>
@@ -405,7 +405,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // part_o: float32 scratch of b*nh*nq*splits*hd; part_ml: of b*nh*nq*splits*2;
-// lse: float32 (b, nh, nq) for the rows' log-sum-exp, or null. The keys are
+// lse: float32 (b, nh, nq) for the rows' log-sum-exp. The keys are
 // cut into `splits` chunks of `tiles_per_split` 64-key tiles
 // (splits == ceil(ceil(nk / 64) / tiles_per_split)). k and v must be 16-byte aligned.
 extern "C" int rgbd_masked_cross_attention(

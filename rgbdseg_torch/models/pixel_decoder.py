@@ -36,13 +36,18 @@ def offset_bias_grid(num_heads: int, n_levels: int, n_points: int) -> np.ndarray
 def sampling_locations(reference_points, offsets, spatial_shapes) -> torch.Tensor:
     """(B, L, nh, nl, P, 2) normalized (x, y): each query's reference point
     (B, L, nl, 2) plus its pixel offsets (B, L, nh, nl, P, 2) over the level's
-    (w, h). In f32: pixel coordinates reach O(100)."""
-    normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32,
-                              device=offsets.device)
-    return (
-        reference_points.float()[:, :, None, :, None, :]
-        + offsets.float() / normalizer[None, None, None, :, None, :]
+    (w, h). In f32: pixel coordinates reach O(100). The bits are the JAX
+    package's under jit on the CPU, where XLA computes ref + offset * (1 / w) as
+    one fused multiply-add with the float32 reciprocal; here the product is
+    exact in float64 and the sum is rounded once more to float32, the same on
+    every device (see `reference_points_for_shapes` for why the bits matter)."""
+    inv = torch.tensor([[_f32_reciprocal(w), _f32_reciprocal(h)] for (h, w) in spatial_shapes],
+                       dtype=torch.float64, device=offsets.device)
+    locations = (
+        reference_points.double()[:, :, None, :, None, :]
+        + offsets.double() * inv[None, None, None, :, None, :]
     )
+    return locations.float()
 
 
 class DeformableAttention(nn.Module):
@@ -90,14 +95,25 @@ class EncoderLayer(nn.Module):
 
 
 def reference_points_for_shapes(spatial_shapes, device=None) -> torch.Tensor:
-    """(L_total, 2) normalized (x, y) half-pixel reference points."""
+    """(L_total, 2) normalized (x, y) half-pixel reference points, (i + 0.5) times
+    the float32 reciprocal of the level's size: the JAX package's bits (XLA turns
+    its division by a constant into that product), the same on every device. A
+    division would not be: the CPU divides, CUDA multiplies by the reciprocal, and
+    they part by an ulp at about 40% of the 480x640 points. Many seeded samples
+    sit on exact integers, where K1's gradient (the tent's subgradient) jumps, so
+    that ulp changed the sampling offsets' gradient by half its size."""
     pts = []
     for h, w in spatial_shapes:
-        ry = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
-        rx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+        ry = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * _f32_reciprocal(h)
+        rx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * _f32_reciprocal(w)
         gy, gx = torch.meshgrid(ry, rx, indexing="ij")
         pts.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1))
     return torch.cat(pts, dim=0)
+
+
+def _f32_reciprocal(n: int) -> float:
+    """1 / n rounded to float32 (and exact as a Python float)."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def initial_locations(spatial_shapes, nh: int, npts: int, device=None) -> torch.Tensor:

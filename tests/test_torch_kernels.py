@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from rgbdseg_torch.ops.kernels import LAUNCHES, reset_launches
-from rgbdseg_torch.models.pixel_decoder import initial_locations
+from rgbdseg_torch.models.pixel_decoder import initial_locations, reference_points_for_shapes, sampling_locations
 from rgbdseg_torch.ops.kernels.deformable import (
     deform_sample_level,
     deform_sample_level_plain,
@@ -184,6 +184,22 @@ def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_locations_equal_cpu():
+    """The encoder's reference points and sampling locations have the same bits
+    on the card as on the CPU (K1's gradient jumps at exact integer samples)."""
+    _need_cuda()
+    nh, nl, npts = 8, 3, 4
+    ref = reference_points_for_shapes(LEVELS_480x640)
+    assert torch.equal(reference_points_for_shapes(LEVELS_480x640, "cuda").cpu(), ref)
+    ref = ref[None, :, None, :].expand(1, -1, nl, 2)
+    off = torch.from_numpy((np.random.RandomState(0).randn(2, ref.shape[1], nh, nl, npts, 2) * 3).astype(np.float32))
+    got = sampling_locations(ref.cuda(), off.cuda(), LEVELS_480x640).cpu()
+    assert torch.equal(got, sampling_locations(ref, off, LEVELS_480x640))
+    got = initial_locations(LEVELS_480x640, nh, npts, "cuda").cpu()
+    assert torch.equal(got, initial_locations(LEVELS_480x640, nh, npts))
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from flax import linen as fnn
 from rgbdseg_tpu.config import ModelConfig as JConfig
 from rgbdseg_tpu.models.mask2former import Mask2FormerRGBD as JModel
 from rgbdseg_tpu.models.mask2former import ModelOutputs as JOutputs
+from rgbdseg_tpu.models import pixel_decoder as jpd
 from rgbdseg_tpu.ops import losses as jlosses
 from rgbdseg_tpu.ops.kernels import deformable as jdeform
 from rgbdseg_tpu.ops.kernels import masked_attention as jmca
@@ -37,7 +38,12 @@ from rgbdseg_tpu.ops.matcher import hungarian_batch as j_hungarian
 from rgbdseg_tpu.train.trainer import _hf_decay_mask
 from rgbdseg_torch.config import ModelConfig, SwinConfig
 from rgbdseg_torch.models.mask2former import Mask2FormerRGBD, ModelOutputs
-from rgbdseg_torch.models.pixel_decoder import initial_locations
+from rgbdseg_torch.models.pixel_decoder import (
+    initial_locations,
+    offset_bias_grid,
+    reference_points_for_shapes,
+    sampling_locations,
+)
 from rgbdseg_torch.models.stochastic import Dropout, drop_path
 from rgbdseg_torch.models.swin import SwinBackbone
 from rgbdseg_torch.ops import losses as tlosses
@@ -162,6 +168,30 @@ def test_k1_levels_backward_matches_jax_vjp(geometry):
     deform_sample_levels(ts[0], shapes, ts[1], ts[2]).backward(torch.from_numpy(g))
     for t, r in zip(ts, ref):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shapes", [((15, 20), (30, 40), (60, 80)), ((7, 9), (13, 17), (3, 11))])
+def test_sampling_locations_match_jitted_jax_bitwise(shapes):
+    """The encoder's reference points and sampling locations (the seeded offsets
+    and random ones) have the JAX package's bits under jit: K1's gradient jumps
+    at exact integer samples, which the seeded geometry hits, so one ulp there
+    moves the sampling offsets' gradient. 480x640's levels and odd sizes."""
+    nh, nl, npts = 8, 3, 4
+    l = sum(h * w for h, w in shapes)
+    rng = np.random.RandomState(0)
+    seeded = np.broadcast_to(offset_bias_grid(nh, nl, npts).reshape(1, 1, nh, nl, npts, 2), (1, l, nh, nl, npts, 2))
+    offsets = np.concatenate([seeded, (rng.randn(1, l, nh, nl, npts, 2) * 3).astype(np.float32)])
+
+    def j_locations(zero, off):  # the JAX encoder layer's location arithmetic
+        ref = jnp.broadcast_to(jpd.reference_points_for_shapes(shapes, zero)[None, :, None, :], (1, l, nl, 2))
+        normalizer = jnp.asarray([[w, h] for (h, w) in shapes], jnp.float32)
+        return ref[:, :, None, :, None, :] + off / normalizer[None, None, None, :, None, :]
+
+    j_ref = np.asarray(jax.jit(lambda z: jpd.reference_points_for_shapes(shapes, z))(0.0))
+    ref = reference_points_for_shapes(shapes)
+    np.testing.assert_array_equal(ref.numpy(), j_ref)
+    got = sampling_locations(ref[None, :, None, :].expand(1, -1, nl, 2), torch.from_numpy(offsets), shapes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax.jit(j_locations)(0.0, offsets)))
 
 
 # ---------------------------------------------------------------- K3 backward
