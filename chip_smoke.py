@@ -26,8 +26,11 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      autograd wrappers (`torch.autograd.grad` of `deform_sample_levels` and
      `masked_cross_attention`, one forward and one backward launch each),
      against their plain backward versions at the train shapes (B=2): K1 at the
-     in-model geometry (timed) and at random coordinates, K3 at K=300, 1200 and
-     4800 with an all-blocked row; the device time of the backward launch, the
+     in-model geometry (the headline time), at the in-model layout with offsets
+     of +-12 pixels ("spread") and at random coordinates (both correctness
+     cases, timed too), K3 at K=300, 1200 and 4800 with an all-blocked row, and
+     a second K3 launch that must give the same bits; the device time of the
+     backward launch, the
      plain backward's and the library yardstick's (the aten grid_sample backward
      for each level; SDPA's forward and backward less its forward), each from a
      replayed CUDA graph, the eager time, and a byte and operation bound;
@@ -158,15 +161,23 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S) -> 
 def k1_inputs(rng, dev, geometry: str, b: int = 1):
     """Multi-level K1 inputs at 480x640 in the model's layouts: value (b, 6300, 8, 32),
     locations (b, 6300, 8, 3, 4, 2), weights (b, 6300, 8, 3, 4). "model": the
-    in-model geometry with uniform weights; "random": uniform locations over
-    [-0.1, 1.1]^2 and random softmax weights (a correctness case)."""
+    in-model geometry with uniform weights; "spread": the in-model layout
+    (reference points) with offsets uniform in +-12 pixels at each level, so
+    samples cross the K1 backward's window margins and tile edges (a correctness
+    case, and the cost of samples outside the windows); "random": uniform
+    locations over [-0.1, 1.1]^2 and random softmax weights (a correctness case)."""
     import torch
 
-    from rgbdseg_torch.models.pixel_decoder import initial_locations
+    from rgbdseg_torch.models.pixel_decoder import initial_locations, reference_points_for_shapes, sampling_locations
 
     value = torch.from_numpy(rng.randn(b, L, NH, HD).astype(np.float32)).to(dev)
     if geometry == "model":
         loc = initial_locations(LEVELS, NH, P, dev).expand(b, -1, -1, -1, -1, -1).contiguous()
+        weights = torch.full((b, L, NH, len(LEVELS), P), 1.0 / (len(LEVELS) * P), device=dev)
+    elif geometry == "spread":
+        ref = reference_points_for_shapes(LEVELS, dev)[None, :, None, :].expand(b, -1, len(LEVELS), 2)
+        off = torch.from_numpy(rng.uniform(-12, 12, (b, L, NH, len(LEVELS), P, 2)).astype(np.float32)).to(dev)
+        loc = sampling_locations(ref, off, LEVELS).contiguous()
         weights = torch.full((b, L, NH, len(LEVELS), P), 1.0 / (len(LEVELS) * P), device=dev)
     else:
         loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, L, NH, len(LEVELS), P, 2)).astype(np.float32)).to(dev)
@@ -382,7 +393,7 @@ def check_backward_kernels(rng, dev) -> dict:
 
     rows = {"deform_sample_levels_bwd": [], "masked_cross_attention_bwd": []}
     starts = [sum(h * w for h, w in LEVELS[:i]) for i in range(len(LEVELS))]
-    for geometry in ("random", "model"):
+    for geometry in ("random", "spread", "model"):
         value, loc, weights = k1_inputs(rng, dev, geometry, TRAIN_B)
         g = torch.from_numpy(rng.randn(TRAIN_B, L, NH * HD).astype(np.float32)).to(dev)
 
@@ -392,11 +403,14 @@ def check_backward_kernels(rng, dev) -> dict:
         got = autograd_grads(f"deform_sample_levels_bwd {geometry}", "deformable",
                              lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w), (value, loc, weights), g)
         err = _check_grads(f"deform_sample_levels_bwd {geometry}", got, plain(), K1_BWD_RTOL)
-        if geometry != "model":
-            continue
 
         def kernel():  # the launch the autograd backward makes, alone, for the CUDA graph
             return KD._launch_bwd(value, loc, weights, LEVELS, starts, True, g)
+
+        if geometry != "model":  # correctness cases, timed so that the cost of samples outside the windows is on record
+            log(f"kernel deform_sample_levels_bwd {geometry} (correctness case) B={TRAIN_B}: ms {time_ms(kernel):.4f}; "
+                f"{k1_bwd_cells(loc)} (point, cell) pairs")
+            continue
 
         # The library yardstick: aten's grid_sample backward for each level, on
         # images, grids and output gradients laid out for it beforehand.
@@ -436,6 +450,11 @@ def check_backward_kernels(rng, dev) -> dict:
         got = autograd_grads(f"masked_cross_attention_bwd K={nk}", "masked_attention",
                              lambda q_, k_, v_: KM.masked_cross_attention(q_, k_, v_, m, ab), (q, k, v), g)
         err = _check_grads(f"masked_cross_attention_bwd K={nk}", got, ref, K3_BWD_RTOL, joint=True)
+        again = autograd_grads(f"masked_cross_attention_bwd K={nk}", "masked_attention",
+                               lambda q_, k_, v_: KM.masked_cross_attention(q_, k_, v_, m, ab), (q, k, v), g)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"masked_cross_attention_bwd K={nk}: two launches give different bits")
+        log(f"kernel masked_cross_attention_bwd K={nk}: two launches give the same bits")
         out, lse = KM._launch(q, k, v, m, ab)
 
         def kernel():  # the launch the autograd backward makes, alone, for the CUDA graph

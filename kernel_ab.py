@@ -3,22 +3,33 @@
     python3 kernel_ab.py --parent DIR [--seed N] [--requests N]
 
 DIR is a checkout of the earlier commit (e.g. `git archive <commit>` unpacked
-into `build/parent`) whose kernel wrappers are those of the first slice of the
-port: `deform_sample_level` (one K1 launch per level, on per-level pixel
-coordinates) and `masked_cross_attention` (one K3 launch per call). Its
-package is imported under another name and builds its own sources into
-`DIR/build/kernels`. Each kernel is timed at the main-path shapes of a 480x640
-0.4.0 request, K1 at the in-model sampling geometry (see `chip_smoke.py`), in
-the order old, new, new, old, both as device time (a replayed CUDA graph) and
-as eager time per call from Python (see `chip_smoke.py`), and both are held
-against the plain version first. For K1 the old time is one encoder layer's
-three per-level calls on inputs laid out beforehand, and separately the old
-call site, which also lays them out (permutes, copies, the sum over levels);
-the new time is the one call an encoder layer makes now. Then both commits'
-full-width 0.4.0 models, with the same seeded weights, serve the same
-480x640 frame in turns old, new, new, old (`--requests` rounds): median
-request ms of each, and their logits' difference. Prints one line per shape
-and a JSON line; needs one CUDA card.
+into `build/parent`). Its package is imported under another name and builds
+its own sources into `DIR/build/kernels`. Every kernel is timed at main-path
+shapes in the order old, new, new, old, both as device time (a replayed CUDA
+graph) and as eager time per call from Python (see `chip_smoke.py`), and both
+are held against the plain version first. Sections, each run where the parent
+has what it needs (else it says so and is skipped):
+
+- forward, for a parent from the first slice of the port (its
+  `ops.kernels.deformable` has `deform_sample_level`, one K1 launch per level
+  on per-level pixel coordinates, and no `deform_sample_levels`): K1 and K3 at
+  the shapes of a 480x640 0.4.0 request, K1 at the in-model sampling geometry.
+  The old K1 time is one encoder layer's three per-level calls on inputs laid
+  out beforehand, and separately the old call site, which also lays them out
+  (permutes, copies, the sum over levels); the new time is the one call an
+  encoder layer makes now.
+- backward, for a parent with backward kernels (`_launch_bwd` in both kernel
+  modules, the third slice's signatures): the launch each autograd backward
+  makes, at the train shapes (B=2): K1 at the in-model and the "spread"
+  geometries (`chip_smoke.k1_inputs`), K3 at K = 300, 1200 and 4800 on the
+  log-sum-exp of this tree's forward.
+- requests: both commits' full-width 0.4.0 models, with the same seeded
+  weights, serve the same 480x640 frame in turns old, new, new, old
+  (`--requests` rounds): median request ms of each, and their logits'
+  difference.
+
+Prints one line per shape and a JSON line; needs one CUDA card. For the train
+step, run `chip_smoke.py` in DIR and in this tree in the same chip call.
 """
 
 from __future__ import annotations
@@ -47,6 +58,51 @@ def load_parent(parent: Path):
     spec.loader.exec_module(sys.modules[name])
     return tuple(importlib.import_module(f"{name}.{m}")
                  for m in ("ops.kernels.deformable", "ops.kernels.masked_attention", "inference.predictor"))
+
+
+def backward_ab(old_deform, old_mca, rng) -> list[dict]:
+    """The backward section: the parent's and this tree's backward launches at the
+    train shapes, each held against the plain backward first."""
+    import torch
+
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
+
+    dev = torch.device("cuda")
+    rows = []
+    starts = [sum(h * w for h, w in cs.LEVELS[:i]) for i in range(len(cs.LEVELS))]
+    for geometry in ("model", "spread"):
+        value, loc, weights = cs.k1_inputs(rng, dev, geometry, cs.TRAIN_B)
+        g = torch.from_numpy(rng.randn(cs.TRAIN_B, cs.L, cs.NH * cs.HD).astype(np.float32)).to(dev)
+
+        def old():
+            return old_deform._launch_bwd(value, loc, weights, cs.LEVELS, starts, True, g)
+
+        def new():
+            return KD._launch_bwd(value, loc, weights, cs.LEVELS, starts, True, g)
+
+        ref = KD.deform_sample_levels_plain_bwd(value, cs.LEVELS, loc, weights, g)
+        for label, fn in (("old", old), ("new", new)):
+            cs._check_grads(f"ab K1-bwd {geometry} {label}", fn(), ref, cs.K1_BWD_RTOL)
+        rows.append(dict(kernel="K1-bwd", **ab(f"K1-bwd one encoder layer, {geometry} geometry, B={cs.TRAIN_B}",
+                                                 old, new)))
+    for nk in cs.KEYS:
+        q, k, v, m, ab_ = cs.mca_inputs(rng, nk, dev, cs.TRAIN_B)
+        g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).to(dev)
+        out, lse = KM._launch(q, k, v, m, ab_)
+
+        def old():
+            return old_mca._launch_bwd(q, k, v, m, ab_, out, lse, g)
+
+        def new():
+            return KM._launch_bwd(q, k, v, m, ab_, out, lse, g)
+
+        ref = KM.masked_cross_attention_plain_bwd(q, k, v, m, ab_, g)
+        for label, fn in (("old", old), ("new", new)):
+            cs._check_grads(f"ab K3-bwd K={nk} {label}", fn(), ref, cs.K3_BWD_RTOL, joint=True)
+        rows.append(dict(kernel="K3-bwd", **ab(f"K3-bwd K={nk} B={cs.TRAIN_B}", old, new)))
+    torch.cuda.synchronize()
+    return rows
 
 
 def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
@@ -107,8 +163,6 @@ def main(argv=None) -> int:
         print("kernel_ab.py: no CUDA device", file=sys.stderr)
         return 1
     from rgbdseg_torch.ops.kernels import build_all
-    from rgbdseg_torch.ops.kernels.deformable import deform_sample_levels, deform_sample_levels_plain
-    from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -119,7 +173,28 @@ def main(argv=None) -> int:
     old_deform, old_mca, old_predictor = load_parent(args.parent.resolve())
     rng = np.random.RandomState(args.seed)
     rows = []
+    if all(hasattr(mod, "_launch_bwd") for mod in (old_deform, old_mca)):
+        rows += backward_ab(old_deform, old_mca, rng)
+    else:
+        cs.log("ab: the parent has no backward kernels; backward section skipped")
+    if hasattr(old_deform, "deform_sample_levels"):
+        cs.log("ab: the parent already has the one-launch K1 forward; forward section skipped")
+    else:
+        rows += forward_ab(old_deform, old_mca, rng)
+    torch.cuda.synchronize()
+    e2e = requests_ab(old_predictor, args.seed, rng, args.requests)
+    print(json.dumps({"device": smi, "ab": rows, "requests": e2e}))
+    return 0
 
+
+def forward_ab(old_deform, old_mca, rng) -> list[dict]:
+    """The forward section, against a parent from the first slice of the port."""
+    import torch
+
+    from rgbdseg_torch.ops.kernels.deformable import deform_sample_levels, deform_sample_levels_plain
+    from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
+
+    rows = []
     value, loc, weights = cs.k1_inputs(rng, torch.device("cuda"), "model")
     levels = [cs.k1_level(value, loc, weights, lvl) for lvl in range(len(cs.LEVELS))]
 
@@ -159,10 +234,7 @@ def main(argv=None) -> int:
 
         _agree(f"K3 K={nk}", old_k3, new_k3, masked_cross_attention_plain(q, k, v, m, ab_), cs.K3_TOL)
         rows.append(dict(kernel="K3", **ab(f"K3 K={nk}", old_k3, new_k3)))
-    torch.cuda.synchronize()
-    e2e = requests_ab(old_predictor, args.seed, rng, args.requests)
-    print(json.dumps({"device": smi, "ab": rows, "requests": e2e}))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

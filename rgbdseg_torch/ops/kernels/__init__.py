@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper: build, load and count launches.
 
 Each kernel lives in `rgbdseg_torch/csrc/<name>.cu` behind a plain C
-interface. At first use `load(name)` compiles it with nvcc for `sm_90a` into a
-shared library under `<repo>/build/kernels/` (named by a hash of the source and
-flags, so an edited source rebuilds) and binds it with ctypes. `build_all()`
+interface (helpers shared by several sources in `csrc/*.cuh`). At first use
+`load(name)` compiles it with nvcc for `sm_90a` into a shared library under
+`<repo>/build/kernels/` (named by a hash of the source, the headers and the
+flags, so an edited source or header rebuilds) and binds it with ctypes. `build_all()`
 starts one nvcc per source, all together, and waits for them.
 
 The kernel modules (`deformable`, `masked_attention`) each hold the plain
@@ -44,7 +45,8 @@ _SIGNATURES = {
     ),
     "deformable_bwd": (
         "rgbd_deform_sample_bwd",
-        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p] + [ctypes.c_int] * 11
+        + [ctypes.c_void_p],
     ),
     "masked_attention": (
         "rgbd_masked_cross_attention",
@@ -78,7 +80,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -116,7 +116,9 @@ def _launch_bwd(q, k, v, mask_logits, all_blocked, out, lse, grad_out):
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    dq_part = torch.empty(b * nh * nq * splits * hd, dtype=torch.float32, device=q.device)
+    # Scratch: the splits' dQ partials, then the mask as bits (2 words per 64-key tile and query).
+    dq_part = torch.empty(b * nh * nq * splits * hd + b * nq * 2 * -(-nk // TILE_K), dtype=torch.float32,
+                          device=q.device)
     launch(
         "masked_attention_bwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(), all_blocked.data_ptr(),
