@@ -163,8 +163,8 @@ def k1_inputs(rng, dev, geometry: str, b: int = 1):
     locations (b, 6300, 8, 3, 4, 2), weights (b, 6300, 8, 3, 4). "model": the
     in-model geometry with uniform weights; "spread": the in-model layout
     (reference points) with offsets uniform in +-12 pixels at each level, so
-    samples cross the K1 backward's window margins and tile edges (a correctness
-    case, and the cost of samples outside the windows); "random": uniform
+    neighbouring queries share fewer cells (a correctness case, timed too);
+    "random": uniform
     locations over [-0.1, 1.1]^2 and random softmax weights (a correctness case)."""
     import torch
 
@@ -407,7 +407,7 @@ def check_backward_kernels(rng, dev) -> dict:
         def kernel():  # the launch the autograd backward makes, alone, for the CUDA graph
             return KD._launch_bwd(value, loc, weights, LEVELS, starts, True, g)
 
-        if geometry != "model":  # correctness cases, timed so that the cost of samples outside the windows is on record
+        if geometry != "model":  # correctness cases, timed too
             log(f"kernel deform_sample_levels_bwd {geometry} (correctness case) B={TRAIN_B}: ms {time_ms(kernel):.4f}; "
                 f"{k1_bwd_cells(loc)} (point, cell) pairs")
             continue
@@ -565,7 +565,8 @@ def profile_call(label: str, fn, top: int = 15) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile: {label} wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device events")
-    names = r"deform_sample_bwd_kernel|deform_sample_kernel|mca_split_kernel|mca_combine_kernel|mca_bwd_dq_kernel|mca_bwd_kernel"
+    names = (r"deform_sample_bwd_kernel|deform_sample_kernel|mca_split_kernel|mca_combine_kernel|mca_bwd_dq_kernel"
+             r"|mca_bwd_mask_kernel|mca_bwd_kernel")
     port = {m.group(0): e for e in kernels for m in [re.search(names, e.key)] if m}
     log(f"profile: port kernels {sum(e.self_device_time_total for e in port.values()) / 1e3:.3f} ms of device "
         "time: " + ", ".join(f"{k} {e.self_device_time_total / 1e3:.3f} ms {e.count}x" for k, e in port.items()))

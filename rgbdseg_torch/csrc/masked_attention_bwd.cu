@@ -22,33 +22,43 @@
 // The five products take 10 * hd flops per unblocked (query, key, head), up to
 // 2.5 GFLOP there, ~15 us as float32-accurate products on the tensor cores
 // (three TF32 products each at 495 TFLOP/s): bytes and tensor-core work are
-// about even, and both are far below what scalar FMAs from shared memory
-// reach (two shared loads per FMA: the first version ran at 30x the bound).
+// about even. The first version ran the products as scalar FMAs from shared
+// memory, two shared loads per FMA, at 30x that bound.
 //
-// Design. Grid (key splits, H, B), the forward's split of the keys: a block owns
-// a contiguous chunk of 64-key tiles and every query of its (b, h), taken in
-// chunks of up to 128 rows (padded to 16). Four warps. Per chunk the block
-// stages q and dO in shared memory (16-byte cp.async), and per tile k and v
-// (cp.async, double-buffered). All five products run on the tensor cores as
-// mma.sync m16n8k8 TF32 with the error-compensated split x = hi + lo and three
-// products per step (mma_tf32.cuh), as in the forward: float32 within 1e-5.
+// Design. Three launches: the mask as bits, the main kernel, the sum of dQ over
+// the key splits.
+//  - Mask bits: one warp per (b, query) row ballots the forward's test
+//    (mask < 0 && !all_blocked blocks a key) into 32-key words, 2 per 64-key
+//    tile. So the mask (the largest input) is read once, not once per head, and
+//    the main kernel stages a tile's bits (8 bytes per query) instead of its
+//    logits (256 bytes per query).
+//  - Main kernel, grid (key splits, H, B), the forward's split of the keys: a
+//    block owns a contiguous chunk of 64-key tiles and every query of its
+//    (b, h), taken in chunks of up to 128 rows (padded to 16). Four warps. Per
+//    chunk it stages q and dO in shared memory (16-byte cp.async), per tile k,
+//    v and the mask bits (cp.async, double-buffered). All five products run on
+//    the tensor cores as mma.sync m16n8k8 TF32 with the error-compensated split
+//    x = hi + lo and three products per step (mma_tf32.cuh), float32 within
+//    1e-5. The splits are integer and float ALU operations (conversions run at
+//    a quarter rate), and the three products of a step are issued pass by pass
+//    over independent accumulators, so consecutive mma.sync do not wait for
+//    each other.
 //  - Key-major phase: each warp owns 16 keys of the tile and walks the queries
-//    in groups of 32. It computes S^T = k q^T and dP^T = v dO^T into
+//    in groups of 16. It computes S^T = k q^T and dP^T = v dO^T into
 //    accumulators, turns them into P^T and dS^T = P^T * (dP^T - delta) in
-//    place (the mask test on bits prefetched for the tile), and feeds both
-//    straight from the accumulators as the A operand of dV += P^T dO and
-//    dK += dS^T q (the queries, the contraction index, read in the permuted
-//    order of the accumulator layout). So dK and dV of the warp's keys need no
-//    reduction across warps; they are written once per tile (added over query
-//    chunks, in order). dS^T goes to shared memory.
-//  - Query-major phase: each warp owns 16-row groups of queries and adds
-//    dS k for the tile to its dQ accumulators, kept in registers over the
-//    block's tiles and written once per split to a scratch row; a second
-//    kernel sums the splits in order.
-// The mask logits (the largest input) are read from global memory straight
-// into registers: the next tile's are loaded while the query-major phase runs
-// and packed into one bit per (query, key) a lane needs. Three barriers per
-// tile. No atomics: two launches give the same bits.
+//    place, and feeds both straight from the accumulators as the A operand of
+//    dV += P^T dO and dK += dS^T q (the queries, the contraction index, read in
+//    the permuted order of the accumulator layout). So dK and dV of the warp's
+//    keys need no reduction across warps; they are written once per tile
+//    (added over query chunks, in order). dS^T goes to shared memory.
+//  - Query-major phase: each warp owns 16-row groups of queries and adds dS k
+//    for the tile to its dQ accumulators, kept in registers over the block's
+//    tiles and written once per split to a scratch row; the third launch sums
+//    the splits in order.
+//  - delta = rowsum(dO * O) is the diagonal of O dO^T, taken with the same
+//    products as dP (see below), so a row that attends to one key gets dS = 0
+//    exactly, as in the plain backward.
+// Three barriers per tile. No atomics: two launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -4,8 +4,8 @@ Each kernel lives in `rgbdseg_torch/csrc/<name>.cu` behind a plain C
 interface (helpers shared by several sources in `csrc/*.cuh`). At first use
 `load(name)` compiles it with nvcc for `sm_90a` into a shared library under
 `<repo>/build/kernels/` (named by a hash of the source, the headers and the
-flags, so an edited source or header rebuilds) and binds it with ctypes. `build_all()`
-starts one nvcc per source, all together, and waits for them.
+flags, so an edited source or header rebuilds) and binds it with ctypes.
+`build_all()` starts one nvcc per source, all together, and waits for them.
 
 The kernel modules (`deformable`, `masked_attention`) each hold the plain
 PyTorch versions of their function and its gradient, the wrapper (a
@@ -45,8 +45,7 @@ _SIGNATURES = {
     ),
     "deformable_bwd": (
         "rgbd_deform_sample_bwd",
-        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p] + [ctypes.c_int] * 11
-        + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     ),
     "masked_attention": (
         "rgbd_masked_cross_attention",

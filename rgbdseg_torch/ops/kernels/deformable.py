@@ -11,10 +11,9 @@ kernel (`rgbdseg_torch/csrc/deformable.cu`) gathers the 4 bilinear corners
 directly, for all levels in one launch, hd / 4 lanes per (query, head) with a
 float4 of channels each. It is bound by memory on the H100 (see the source for
 the bytes and the design). Its backward (`csrc/deformable_bwd.cu`) is a kernel
-too, one launch per encoder layer as well. A block there owns a tile of query
-pixels of one level for one (batch, head) and merges d value in a shared-memory
-window per level before it adds it to device memory with float atomics;
-`tile_plan` lays out the tiles and the windows.
+too, one launch per encoder layer as well: per level, each (query, head) pair
+lists its cells of non-zero tent value or slope in shared memory, then loads
+their V rows 8 at a time, and d value is added with float atomics.
 
 The gradient is the JAX package's: there the backward is the VJP of the tent
 twin `tent_sample_level_xla`, which differentiates t_i = max(0, 1 - |g - i|)
@@ -45,23 +44,13 @@ locations (or gx, gy) and the weights.
 from __future__ import annotations
 
 import ctypes
-import functools
-import math
 
-import numpy as np
 import torch
 
 from . import check_cuda_tensor, launch
 
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
 _OFFSETS = (-1, 0, 1, 2)  # cells from floor(g) where 1 - |g - i| can be >= 0 in f32
-# The backward kernel's tile plan (see `tile_plan`).
-TILE = (8, 16)  # query pixels (rows, columns) of one block
-TILE_QUERIES = TILE[0] * TILE[1]  # consecutive queries of one block where the queries are not pixels
-OFFSET_REACH = 4.0  # pixels: the reach of the in-model sampling offsets (`offset_bias_grid`)
-WINDOW_CELLS = 512  # the largest d value window of one level (three blocks per SM), as `kMaxWindowCells` in deformable_bwd.cu
-MAX_LEVELS = 3
-PLAN_COLS = 8 + 4 * MAX_LEVELS
 
 
 def deform_sample_level_plain(gx, gy, aw, v, h: int, w: int) -> torch.Tensor:
@@ -199,61 +188,6 @@ def _check_launch(value, locations, weights, spatial_shapes, starts):
     return b, l, nh, nl, npts, hd, ltot
 
 
-def _window(q_first: int, q_last: int, n_q: int, n: int) -> tuple[int, int]:
-    """(first cell, cells) along one axis of a level of n cells that samples of the
-    query pixels q_first..q_last of a level of n_q reach: their reference points
-    (i + 0.5) / n_q scaled to the level, OFFSET_REACH pixels either way, and the
-    tent's one cell (cells i with |g - i| <= 1), with a margin for f32 rounding."""
-    g_lo = (q_first + 0.5) * n / n_q - 0.5 - OFFSET_REACH
-    g_hi = (q_last + 0.5) * n / n_q - 0.5 + OFFSET_REACH
-    first = max(0, math.ceil(g_lo - 1.001))
-    last = min(n - 1, math.floor(g_hi + 1.001))
-    return first, max(0, last - first + 1)
-
-
-@functools.lru_cache(maxsize=None)
-def tile_plan(spatial_shapes: tuple, nq: int, pixels: bool) -> np.ndarray:
-    """The K1 backward kernel's blocks: int32 rows of PLAN_COLS, one per tile of
-    queries (the grid is tiles x heads x batch). A row is the tile's first query
-    of its level, that level's width, the tile's origin (y, x) and size (rows,
-    columns) in it, two zeros, then per level (up to MAX_LEVELS) the window
-    (y0, x0, rows, columns) of cells whose d value the block merges in shared
-    memory, or zeros where the window would exceed WINDOW_CELLS.
-
-    With `pixels` the queries are the levels' pixels in order, as in the encoder:
-    tiles of TILE pixels of each level, and windows that hold every sample of the
-    in-model geometry. Otherwise tiles of TILE_QUERIES consecutive queries, as
-    one row of width nq, without windows."""
-    rows = []
-    if pixels:
-        first = 0
-        for hq, wq in spatial_shapes:
-            for y0 in range(0, hq, TILE[0]):
-                for x0 in range(0, wq, TILE[1]):
-                    ty, tx = min(TILE[0], hq - y0), min(TILE[1], wq - x0)
-                    row = [first, wq, y0, x0, ty, tx, 0, 0]
-                    for h, w in spatial_shapes:
-                        wy0, wh = _window(y0, y0 + ty - 1, hq, h)
-                        wx0, ww = _window(x0, x0 + tx - 1, wq, w)
-                        row += [wy0, wx0, wh, ww] if wh * ww <= WINDOW_CELLS else [0, 0, 0, 0]
-                    rows.append(row)
-            first += hq * wq
-    else:
-        rows = [[0, nq, 0, x0, 1, min(TILE_QUERIES, nq - x0), 0, 0] for x0 in range(0, nq, TILE_QUERIES)]
-    plan = np.zeros((len(rows), PLAN_COLS), np.int32)
-    for i, row in enumerate(rows):
-        plan[i, : len(row)] = row
-    return plan
-
-
-@functools.lru_cache(maxsize=None)
-def _device_plan(spatial_shapes: tuple, nq: int, pixels: bool, device: torch.device):
-    """`tile_plan` on the device, and its largest window (cells)."""
-    plan = tile_plan(spatial_shapes, nq, pixels)
-    cells = plan[:, 10::4].astype(np.int64) * plan[:, 11::4]
-    return torch.from_numpy(plan).to(device), int(cells.max(initial=0))
-
-
 def _level_table(spatial_shapes, starts):
     return (ctypes.c_int * (3 * len(starts)))(*(x for s, (h, w) in zip(starts, spatial_shapes) for x in (h, w, s)))
 
@@ -277,9 +211,6 @@ def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: b
     grad_out = grad_out.float().contiguous()
     if grad_out.shape != (b, l, nh * hd):
         raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}; expected ({b}, {l}, {nh * hd})")
-    shapes = tuple(map(tuple, spatial_shapes))
-    pixels = normalized and list(starts) == _level_starts(shapes) and l == sum(h * w for h, w in shapes)
-    plan, max_cells = _device_plan(shapes, l, pixels, value.device)
     d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(locations)
     d_w = torch.empty_like(weights)
@@ -287,7 +218,6 @@ def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: b
         "deformable_bwd",
         value.data_ptr(), locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
         d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(), _level_table(spatial_shapes, starts),
-        plan.data_ptr(), plan.shape[0], max_cells,
         b, l, nh, nl, npts, hd, ltot, int(normalized), int(value.dtype == torch.bfloat16),
     )
     return d_value, d_loc, d_w

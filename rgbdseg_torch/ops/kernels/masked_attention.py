@@ -8,12 +8,12 @@ query, runs a flash-style online softmax over its tiles (staged with cp.async,
 double-buffered, q.k and p.v as 3xTF32 `mma.sync` on the tensor cores) with the
 mask test `m < 0 && !all_blocked` evaluated inside the kernel, and writes
 partial (max, sum, accumulator) rows; a second kernel combines them and writes
-each row's log-sum-exp. The backward kernel
-(`rgbdseg_torch/csrc/masked_attention_bwd.cu`) reuses that split: per 64-key
-tile it recomputes the probabilities from the log-sum-exp under the same mask
-test, writes dK and dV of its keys and a partial dQ, which a second kernel sums
-over the splits. Each call (forward or backward) is two launches and counts
-once.
+each row's log-sum-exp. The backward (`rgbdseg_torch/csrc/masked_attention_bwd.cu`)
+turns the mask test into bits, then reuses the forward's split: per 64-key
+tile it recomputes the probabilities from the log-sum-exp, runs its five
+products as 3xTF32 `mma.sync`, writes dK and dV of its keys and a partial dQ,
+which a third kernel sums over the splits in order. Each call counts once: the
+forward is two launches, the backward three.
 
 `masked_cross_attention` keeps the JAX signature: q (B, H, Q, hd) pre-scaled by
 hd**-0.5; k, v (B, H, K, hd); mask_logits (B, Q, K) float32 raw logits;

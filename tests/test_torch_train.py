@@ -146,11 +146,14 @@ def _jax_levels(value, loc, weights, shapes):
     return out.reshape(b, nh, l, hd).transpose(0, 2, 1, 3).reshape(b, l, nh * hd)
 
 
-@pytest.mark.parametrize("geometry", ["model", "random"])
+@pytest.mark.parametrize("geometry", ["model", "random", "spread", "edge"])
 def test_k1_levels_backward_matches_jax_vjp(geometry):
     """All levels through `deform_sample_levels` (as an encoder layer calls it)
     against jax.vjp of the JAX model's per-level sum, 1e-5. "model" is the
-    seeded layer's geometry, which puts many samples on exact integers."""
+    seeded layer's geometry, which puts many samples on exact integers;
+    "spread" and "edge" keep its reference points with offsets uniform in +-12
+    pixels, or +5 pixels in x and y (samples off the map's last rows and
+    columns), as the CUDA tests do."""
     shapes = ((8, 10), (4, 5), (2, 3))
     nh, hd, b = 4, 16, 2
     rng = np.random.RandomState(1)
@@ -158,8 +161,13 @@ def test_k1_levels_backward_matches_jax_vjp(geometry):
     value = rng.randn(b, l, nh, hd).astype(np.float32)
     if geometry == "model":
         loc = np.repeat(initial_locations(shapes, nh, 4).numpy(), b, axis=0)
-    else:
+    elif geometry == "random":
         loc = rng.uniform(-0.1, 1.1, (b, l, nh, 3, 4, 2)).astype(np.float32)
+    else:
+        ref = reference_points_for_shapes(shapes)[None, :, None, :].expand(b, -1, 3, 2)
+        shape = (b, l, nh, 3, 4, 2)
+        off = rng.uniform(-12.0, 12.0, shape) if geometry == "spread" else np.full(shape, 5.0)
+        loc = sampling_locations(ref, torch.from_numpy(off.astype(np.float32)), shapes).numpy()
     weights = _softmax(rng.randn(b, l, nh, 12)).reshape(b, l, nh, 3, 4).astype(np.float32)
     g = rng.randn(b, l, nh * hd).astype(np.float32)
     _, vjp = jax.vjp(lambda a, c, d: _jax_levels(a, c, d, shapes), value, loc, weights)
