@@ -17,8 +17,9 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      coordinates, out of bounds too, are a correctness case only;
   4. slice: the full-width 0.4.0 model (Swin-T, 6 deformable encoder layers,
      100 queries, 10 prediction points, 40 labels; seeded random weights)
-     answers 3 requests of synthetic 480x640 10-channel frames through
-     `Predictor.predict_pixels`; the kernels' launch counts must show every
+     answers 3 requests through `Predictor.predict_pixels`, of 10-channel
+     stacks that the port's channel builder makes on the CPU from synthetic
+     raw 480x640 frames; the kernels' launch counts must show every
      request went through them (6 K1, one per encoder layer; 9 K3); then one
      frame through a CPU copy of the same model, where the plain versions run,
      bounds the logits' difference;
@@ -36,7 +37,8 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      replayed CUDA graph, the eager time, and a byte and operation bound;
   6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
-     480x640 frames with 16 box instances each, f32 with TF32 off; per step the
+     480x640 frames (stacks built as in phase 4) with up to 16 box instances
+     each, f32 with TF32 off; per step the
      step time, the matcher's host time, loss, gradient norm, peak device memory
      and the launches, which must be 6 K1 and 9 K3 forward and backward each;
      the kernels' gradients must reach value_proj, sampling_offsets,
@@ -45,7 +47,21 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      coordinates, dropout and drop path off: the loss, the gradient norm and the
      gradients of the kernel-fed parameters agree, with the CPU on its own
      decoder attention masks and, to a tighter limit, on the GPU's;
-  8. a `kernels` JSON line; the last line is the device JSON.
+  8. channel builder: raw frames of 480x640 and of 720x1280 (a RealSense D435
+     colour frame) to the 480x640 0.4.0 stack on the card and on the CPU: the
+     grayscale, both resizes and the cv2-resized gray bitwise equal, the
+     validity mask bitwise equal, the float channels within 1e-6;
+  9. frame requests: 3 `Predictor.predict_example` requests of raw 720x1280
+     frames (one packed uint8 upload each, 6 bytes per pixel, the stack built
+     on the card), each launching 6 K1 and 9 K3; ms per request, bytes copied
+     to the device, and the logits against those of the CPU-built stack;
+  10. eval: `train.trainer.evaluate` over 8 synthetic 480x640 examples with
+     their instance maps, batch 2 (raw frames and bit-packed masks uploaded),
+     by the device-stats path and by the host mask path: identical metric
+     dicts, 4 x (6 K1 + 9 K3) launches each; images/s, the eval loss and
+     eval_map (random weights: printed, not checked); `eval_stats` of the same
+     logits on the card and on the CPU: labels and counts equal;
+  11. a `kernels` JSON line; the last line is the device JSON.
 With --profile, phases 4 and 6 also profile one request and one train step
 (torch.profiler): the device's busy share and the kernels that take the most
 device time.
@@ -94,6 +110,12 @@ TRAIN_B, TRAIN_T = 2, 16  # train batch and real instances per frame
 # layers: ten times the slack.
 STEP0_SAME_RTOL = (1e-5, 1e-4, 1e-3)
 STEP0_OWN_RTOL = (1e-4, 1e-3, 1e-2)
+# The channel builder's float channels on the card against the CPU: the same
+# float32 operations in the same order (normalise, Sobel sums of integers, a
+# square root, one subtraction and one division), each correctly rounded on both.
+BUILD_TOL = 1e-6
+SERVE_LAUNCHES = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 0, "masked_attention_bwd": 0}
+EVAL_N, EVAL_B = 8, 2  # eval examples and batch
 LEVELS = ((15, 20), (30, 40), (60, 80))  # deformable levels at 480x640
 KEYS = (300, 1200, 4800)  # masked cross-attention keys at 480x640
 NH, L, P, HD, NQ = 8, 6300, 4, 32, 100  # heads, queries (all levels' pixels), points
@@ -494,50 +516,44 @@ def check_backward_kernels(rng, dev) -> dict:
     return rows
 
 
-def _sobel_mag(d: np.ndarray) -> np.ndarray:
-    p = np.pad(d, 1, mode="reflect")
-    gx = (p[:-2, 2:] + 2 * p[1:-1, 2:] + p[2:, 2:]) - (p[:-2, :-2] + 2 * p[1:-1, :-2] + p[2:, :-2])
-    gy = (p[2:, :-2] + 2 * p[2:, 1:-1] + p[2:, 2:]) - (p[:-2, :-2] + 2 * p[:-2, 1:-1] + p[:-2, 2:])
-    return np.sqrt(gx**2 + gy**2)
-
-
-def synthetic_frame(rng, h: int = 480, w: int = 640, boxes: int = 4, with_masks: bool = False):
-    """A 0.4.0 channel stack: normalised RGB, 3-channel normalised depth, the
-    normalised Sobel magnitude of the depth (3 channels) and its validity mask.
-    The depth is an 8-bit map (as a depth PNG is) of a background plane and
-    `boxes` tilted planar boxes, so the DSAM histogram has clear modes. With
-    `with_masks`, also the boxes' masks (boxes, h, w) float32, one instance each."""
-    mean = np.array([0.485, 0.456, 0.406], np.float32)
-    std = np.array([0.229, 0.224, 0.225], np.float32)
+def synthetic_frame(rng, h: int = 480, w: int = 640, boxes: int = 4):
+    """Raw frames as a camera gives them: a uint8 RGB frame (h, w, 3), an 8-bit
+    depth plane (h, w) with 1% holes (0) and its instance map (h, w) uint8 (box
+    i has id i + 1; later boxes cover earlier ones; 0 is the background). The
+    depth is a background plane and `boxes` tilted planar boxes, so the DSAM
+    histogram has clear modes."""
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     depth = 200.0 - 0.05 * yy + rng.uniform(-0.02, 0.02) * xx
-    masks = []
-    for _ in range(boxes):
+    inst = np.zeros((h, w), np.uint8)
+    for i in range(boxes):
         y0, x0 = rng.randint(0, h * 3 // 4), rng.randint(0, w * 3 // 4)
         bh, bw = rng.randint(h // 8, h * 2 // 5), rng.randint(w // 8, w * 2 // 5)
         plane = rng.uniform(40, 160) + rng.uniform(-0.1, 0.1) * (yy - y0) + rng.uniform(-0.1, 0.1) * (xx - x0)
         box = (yy >= y0) & (yy < y0 + bh) & (xx >= x0) & (xx < x0 + bw)
         depth = np.where(box, plane, depth)
-        masks.append(box)
+        inst[box] = i + 1
     depth = np.clip(np.round(depth), 0, 255).astype(np.uint8)
     depth[rng.rand(h, w) < 0.01] = 0  # missing depth
-    rgb = rng.randint(0, 256, (h, w, 3)).astype(np.float32)
-    d = depth.astype(np.float32)
-    mag = _sobel_mag(d)
-    valid = d != 0
-    mag[~valid] = 0
-    gmask = mag > 0
-    lo, hi = (mag[gmask].min(), mag.max()) if gmask.any() else (0.0, 0.0)
-    norm = (mag - lo) / (hi - lo) if hi > lo else np.zeros_like(mag)
-    norm[~gmask] = 0
-    chans = [
-        (rgb / 255.0 - mean) / std,
-        (np.repeat(d[..., None], 3, -1) / 255.0 - mean) / std,
-        np.repeat(norm[..., None], 3, -1),
-        gmask[..., None],
-    ]
-    frame = np.concatenate(chans, axis=-1).astype(np.float32)
-    return (frame, np.stack(masks).astype(np.float32)) if with_masks else frame
+    rgb = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    return rgb, depth, inst
+
+
+def depth_rgb(depth: np.ndarray) -> np.ndarray:
+    """A gray depth plane as its PNG converts to RGB: (h, w, 3)."""
+    return np.repeat(depth[..., None], 3, axis=-1)
+
+
+def frame_stack(rgb: np.ndarray, depth: np.ndarray, out_hw=(480, 640)) -> np.ndarray:
+    """The 0.4.0 channel stack (H, W, 10) float32 of raw frames, built on the
+    CPU by the port's channel builder."""
+    import torch
+
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_pixels
+
+    pp = PreprocessConfig(height=out_hw[0], width=out_hw[1])
+    return build_pixels("map_10channel_case2", torch.from_numpy(rgb)[None],
+                        torch.from_numpy(depth_rgb(depth))[None], pp)[0].numpy()
 
 
 def profile_request(pred, frame, top: int = 15) -> None:
@@ -574,19 +590,20 @@ def profile_call(label: str, fn, top: int = 15) -> None:
         log(f"profile: {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
-def run_slice(seed: int, rng, profile: bool = False) -> dict:
-    """Phase 4: the full-width 0.4.0 model serves 3 requests through the kernels."""
+def run_slice(seed: int, rng, profile: bool = False):
+    """Phase 4: the full-width 0.4.0 model serves 3 requests through the kernels.
+    Returns the launch counts and the predictor."""
     import torch
 
-    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
     from rgbdseg_torch.inference.postprocess import post_process_instance_segmentation
     from rgbdseg_torch.inference.predictor import Predictor
     from rgbdseg_torch.ops import kernels as K
 
     cfg = ModelConfig(num_labels=40, version="0.4.0")
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device="cuda", seed=seed)
-    frames = [synthetic_frame(rng)[None] for _ in range(3)]
+    pred = Predictor(cfg, device="cuda", seed=seed, preprocess=PreprocessConfig(height=480, width=640))
+    frames = [frame_stack(*synthetic_frame(rng)[:2])[None] for _ in range(3)]
     log(f"slice: 0.4.0 full width, {sum(p.numel() for p in pred.model.parameters())} parameters, "
         f"built in {time.perf_counter() - t0:.1f} s")
 
@@ -600,7 +617,7 @@ def run_slice(seed: int, rng, profile: bool = False) -> dict:
         per_request.append(ms)
         log(f"slice request {i}: {ms:.2f} ms, {len(res['segments_info'])} segments, "
             f"masks {res['segmentation'].shape}, launches {delta}")
-        if delta != {"deformable": 6, "masked_attention": 9, "deformable_bwd": 0, "masked_attention_bwd": 0}:
+        if delta != SERVE_LAUNCHES:
             raise AssertionError(f"request {i} launched {delta}; expected 6 deformable and 9 masked-attention")
     launches = dict(K.LAUNCHES)
 
@@ -639,7 +656,7 @@ def run_slice(seed: int, rng, profile: bool = False) -> dict:
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
         profile_request(pred, frames[0])
-    return launches
+    return launches, pred
 
 
 def run_train(seed: int, rng, profile: bool = False):
@@ -658,10 +675,16 @@ def run_train(seed: int, rng, profile: bool = False):
     args = TrainingArguments(learning_rate=1e-4, weight_decay=0.05, per_device_train_batch_size=TRAIN_B)
     model, opt = build_training(cfg, args, num_examples=3 * TRAIN_B, seed=seed)
     step0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    frames, masks = zip(*(synthetic_frame(rng, boxes=TRAIN_T, with_masks=True) for _ in range(TRAIN_B)))
+    frames, masks = [], []
+    for _ in range(TRAIN_B):
+        rgb, depth, inst = synthetic_frame(rng, boxes=TRAIN_T)
+        frames.append(frame_stack(rgb, depth))
+        masks.append(np.stack([inst == i + 1 for i in range(TRAIN_T)]).astype(np.float32))
+    masks = np.stack(masks)
+    valid = masks.any(axis=(2, 3))  # a box that later boxes cover whole is no instance
     classes = rng.randint(0, cfg.num_labels, (TRAIN_B, TRAIN_T))
     batch = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in
-                         (np.stack(frames), np.stack(masks), classes, np.ones((TRAIN_B, TRAIN_T), bool))))
+                         (np.stack(frames), masks, classes, valid)))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     expected = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9}
     torch.cuda.reset_peak_memory_stats()
@@ -686,8 +709,9 @@ def run_train(seed: int, rng, profile: bool = False):
                       ("decoder k_proj", cross.k_proj), ("decoder v_proj", cross.v_proj)):
         if mod.weight.grad is None or not mod.weight.grad.abs().sum().item() > 0:
             raise AssertionError(f"no gradient reached {name} through the kernels")
-    log(f"train: {sum(p.numel() for p in model.parameters())} parameters, batch {TRAIN_B} x {TRAIN_T} instances; "
-        "gradients reach value_proj, sampling_offsets, attention_weights and the decoder q/k/v projections")
+    log(f"train: {sum(p.numel() for p in model.parameters())} parameters, batch {TRAIN_B}, "
+        f"{valid.sum(1).tolist()} instances; gradients reach value_proj, sampling_offsets, attention_weights "
+        "and the decoder q/k/v projections")
     launches = dict(K.LAUNCHES)
     if profile:
         profile_call("train step", lambda: train_step(model, opt, batch, gen))
@@ -799,6 +823,222 @@ def step0_gpu_vs_cpu(state, batch) -> None:
             raise AssertionError(f"step 0 on GPU and CPU disagree (CPU on the {label} attention masks): {got[:3]} > {tols}")
 
 
+def check_builder(rng, dev) -> None:
+    """Phase 8: the channel builder on the card against the CPU, from raw frames
+    at the target size and at a RealSense D435 colour size: the uint8 stages
+    bitwise, the validity mask bitwise, the float channels within BUILD_TOL."""
+    import torch
+
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_pixels, pil_grayscale_u8
+    from rgbdseg_torch.ops.resize_exact import cv2_resize_linear_u8, pil_resize_u8
+
+    pp = PreprocessConfig(height=480, width=640)
+    stages = {
+        "gray": lambda r, d: pil_grayscale_u8(d),
+        "rgb PIL-resized": lambda r, d: pil_resize_u8(r, (480, 640), has_channels=True),
+        "depth PIL-resized": lambda r, d: pil_resize_u8(d, (480, 640), has_channels=True),
+        "gray cv2-resized": lambda r, d: cv2_resize_linear_u8(pil_grayscale_u8(d), (480, 640), has_channels=False),
+    }
+    for h, w in ((480, 640), (720, 1280)):
+        rgb, depth, _ = synthetic_frame(rng, h, w)
+        cpu = [torch.from_numpy(a)[None] for a in (rgb, depth_rgb(depth))]
+        gpu = [t.to(dev) for t in cpu]
+        for name, fn in stages.items():
+            if not torch.equal(fn(*gpu).cpu(), fn(*cpu)):
+                raise AssertionError(f"builder {h}x{w}: {name} differs between the card and the CPU")
+        times = [_timed(lambda: build_pixels("map_10channel_case2", *gpu, pp))[1] for _ in range(3)]
+        got = build_pixels("map_10channel_case2", *gpu, pp).cpu()
+        ref = build_pixels("map_10channel_case2", *cpu, pp)
+        if not torch.equal(got[..., 9], ref[..., 9]):
+            raise AssertionError(f"builder {h}x{w}: validity masks differ between the card and the CPU")
+        err = (got[..., :9] - ref[..., :9]).abs().max().item()
+        log(f"builder {h}x{w} -> 480x640: uint8 stages ({', '.join(stages)}) and validity mask bitwise equal on "
+            f"the card and the CPU; float channels max_abs_diff {err:.3e} (tol {BUILD_TOL:g}), bitwise "
+            f"{torch.equal(got, ref)}; build on the card {sorted(times)[1]:.2f} ms (median of 3)")
+        if not err <= BUILD_TOL:
+            raise AssertionError(f"builder {h}x{w}: float channels differ by {err}")
+
+
+def _launch_check(label: str, expected: dict) -> None:
+    from rgbdseg_torch.ops import kernels as K
+
+    if dict(K.LAUNCHES) != expected:
+        raise AssertionError(f"{label} launched {dict(K.LAUNCHES)}; expected {expected}")
+
+
+def run_frame_requests(rng, pred) -> None:
+    """Phase 9: 3 `predict_example` requests of raw 720x1280 frames, each one
+    packed uint8 upload built into the 480x640 stack on the card; each must launch
+    6 K1 and 9 K3. Then the logits of the raw path against those of the stack the
+    CPU builds of the same frames."""
+    import torch
+
+    from rgbdseg_torch.ops import kernels as K
+
+    frames = [synthetic_frame(rng, 720, 1280)[:2] for _ in range(3)]
+    per_request = []
+    for i, (rgb, depth) in enumerate(frames):
+        K.reset_launches()
+        res, ms = _timed(lambda: pred.predict_example({"image": [rgb, depth]}, threshold=0.0))
+        _launch_check(f"frame request {i}", SERVE_LAUNCHES)
+        per_request.append(ms)
+        log(f"frame request {i}: {ms:.2f} ms, {pred.last_upload_bytes} bytes host to device "
+            f"({pred.last_upload_bytes / (720 * 1280):g} B/px of 720x1280), {len(res['segments_info'])} segments, "
+            f"masks {res['segmentation'].shape}, launches {dict(K.LAUNCHES)}")
+    rgb, depth = frames[0]
+    raw = [t.cpu() for t in pred._forward_raw([rgb, depth_rgb(depth)])]
+    stack = torch.from_numpy(frame_stack(rgb, depth)[None]).to(pred.device)
+    ref = [t.cpu() for t in pred._forward(stack)]
+    # the same stack forwarded again: how far the forward itself varies from run to run
+    again = [t.cpu() for t in pred._forward(stack)]
+    for name, g, c, a in zip(("class", "mask"), raw, ref, again):
+        diff, scale = (g - c).abs().max().item(), c.abs().max().item()
+        log(f"frame request {name} logits, stack built on the card vs on the CPU: max_abs_diff {diff:.3e}, "
+            f"max |logit| {scale:.3e}, tol {SLICE_RTOL:g} x max(1, max |logit|); the CPU-built stack "
+            f"forwarded twice: max_abs_diff {(a - c).abs().max().item():.3e}")
+        if not (torch.isfinite(g).all() and diff <= SLICE_RTOL * max(1.0, scale)):
+            raise AssertionError(f"frame request {name} logits differ by {diff}")
+    log(f"frame requests: per-request ms {[round(x, 3) for x in per_request]}")
+
+    # Where a frame request's time goes: each stage synchronised, the median of 3.
+    from rgbdseg_torch.data.device_preprocess import build_pixels
+    from rgbdseg_torch.inference.postprocess import post_process_instance_segmentation
+
+    flat_np, n = np.concatenate([rgb.reshape(-1), depth_rgb(depth).reshape(-1)]), rgb.size
+    stages = {"upload": [], "build": [], "forward": [], "post_process": []}
+    for _ in range(3):
+        flat, t_up = _timed(lambda: torch.from_numpy(flat_np).to(pred.device))
+        pix, t_build = _timed(lambda: build_pixels("map_10channel_case2", flat[:n].reshape(1, *rgb.shape),
+                                                   flat[n:].reshape(1, *rgb.shape), pred.preprocess))
+        (cls, masks), t_fwd = _timed(lambda: pred._forward(pix))
+        _, t_post = _timed(lambda: post_process_instance_segmentation(cls, masks, threshold=0.0,
+                                                                      target_sizes=[(480, 640)]))
+        for k, t in zip(stages, (t_up, t_build, t_fwd, t_post)):
+            stages[k].append(t)
+    log("frame request stages ms (median of 3): " + ", ".join(f"{k} {sorted(v)[1]:.2f}" for k, v in stages.items()))
+    # Whether the logits' difference above comes from the stacks or from the forward.
+    logit_diffs = [[(a.cpu() - b).abs().max().item() for a, b in zip((cls, masks), other)] for other in (raw, ref)]
+    log(f"frame request 0: stack built on the card vs on the CPU bitwise {torch.equal(pix, stack)}, max_abs_diff "
+        f"{(pix - stack).abs().max().item():.3e}; its (class, mask) logits vs the raw path's {logit_diffs[0]}, "
+        f"vs the CPU-built stack's {logit_diffs[1]}")
+
+
+def eval_batches(rng, n: int = EVAL_N, b: int = EVAL_B):
+    """n synthetic 480x640 examples in batches of b: raw frames packed uint8
+    (b, 480, 640, 6); instances from each annotation (instance ids in channel 1,
+    semantic ids in channel 2, as the annotation PNGs hold them) through the
+    registry's mask path, padded to the most instances, and bit-packed."""
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data import registry as R
+    from rgbdseg_torch.data.pipeline import Batch
+
+    pp = PreprocessConfig(height=480, width=640)
+    examples = []
+    for _ in range(n):
+        rgb, depth, inst = synthetic_frame(rng, boxes=8)
+        semantic = rng.randint(1, 40, 256).astype(np.uint8)
+        semantic[0] = 0
+        ann = np.stack([np.zeros_like(inst), inst, semantic[inst]], axis=-1)
+        masks, labels = R._labels(*R._mask_and_mapping(ann), pp)
+        examples.append((np.concatenate([rgb, depth_rgb(depth)], axis=-1), masks, labels))
+    t = max(len(e[2]) for e in examples)
+    batches = []
+    for s in range(0, n, b):
+        chunk = examples[s : s + b]
+        masks = np.zeros((len(chunk), t, 480, 640), np.float32)
+        classes = np.zeros((len(chunk), t), np.int64)
+        valid = np.zeros((len(chunk), t), bool)
+        for i, (_, m, c) in enumerate(chunk):
+            masks[i, : len(c)], classes[i, : len(c)], valid[i, : len(c)] = m, c, True
+        batches.append(Batch(np.stack([e[0] for e in chunk]), masks, classes, valid,
+                             mask_labels_packed=np.packbits(masks.astype(bool).reshape(len(chunk), t, -1), axis=-1)))
+    return batches
+
+
+def run_eval(rng, pred) -> None:
+    """Phase 10: `train.trainer.evaluate` on the card over EVAL_N examples in
+    batches of EVAL_B (raw frames built on the card, packed GT), by the
+    device-stats path and by the host mask path: the metric dicts must be
+    identical. Then `eval_stats` of one batch's logits on the card and on the
+    CPU: labels and counts equal, scores within 1e-6 relative."""
+    import os
+
+    import torch
+
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_from_packed
+    from rgbdseg_torch.inference.postprocess import eval_stats
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.train.trainer import evaluate
+
+    pp = PreprocessConfig(height=480, width=640)
+    batches = eval_batches(rng)
+    id2label = {i: f"class{i}" for i in range(pred.cfg.num_labels)}
+    expected = {k: v * len(batches) for k, v in SERVE_LAUNCHES.items()}
+    results = {}
+    previous = os.environ.get("RGBDSEG_EVAL_DEVICE_STATS")
+    try:
+        for path, switch in (("device stats", "1"), ("host masks", "0")):
+            os.environ["RGBDSEG_EVAL_DEVICE_STATS"] = switch
+            K.reset_launches()
+            metrics, ms = _timed(lambda: evaluate(pred.model, batches, id2label, pp))
+            _launch_check(f"eval ({path})", expected)
+            results[path] = metrics
+            log(f"eval ({path}): {EVAL_N} images in batches of {EVAL_B} in {ms:.1f} ms, "
+                f"{metrics['eval_samples_per_second']} images/s, eval_loss {metrics['eval_loss']:.6f}, "
+                f"eval_map {metrics['eval_map']:.6f}, eval_map_50 {metrics['eval_map_50']:.6f} (random weights: "
+                f"printed, not checked), launches {dict(K.LAUNCHES)}")
+    finally:
+        if previous is None:
+            os.environ.pop("RGBDSEG_EVAL_DEVICE_STATS", None)
+        else:
+            os.environ["RGBDSEG_EVAL_DEVICE_STATS"] = previous
+    timing = ("eval_runtime", "eval_samples_per_second")
+    dev_m, host_m = ({k: v for k, v in m.items() if k not in timing} for m in results.values())
+    if dev_m != host_m:
+        diff = {k: (dev_m.get(k), host_m.get(k)) for k in set(dev_m) | set(host_m) if dev_m.get(k) != host_m.get(k)}
+        raise AssertionError(f"eval metrics differ between the device-stats and the host paths: {diff}")
+    log(f"eval: the device-stats and host-mask paths give identical metrics ({len(dev_m)} keys)")
+
+    batch = batches[0]
+    with torch.no_grad():
+        pix = build_from_packed("map_10channel_case2", torch.from_numpy(batch.pixel_values).to(pred.device), pp)
+        out = pred.model(pix)
+    args = (out.class_queries_logits, out.masks_queries_logits, torch.from_numpy(batch.mask_labels_packed),
+            torch.from_numpy(batch.valid))
+    gpu = [t.cpu() for t in eval_stats(*(a.to(pred.device) for a in args), (480, 640), (480, 640))]
+    cpu = eval_stats(*(a.cpu() for a in args), (480, 640), (480, 640))
+    score_err = ((gpu[0] - cpu[0]).abs() / cpu[0].abs().clamp(min=1e-30)).max().item()
+    equal = [torch.equal(g, c) for g, c in zip(gpu[1:], cpu[1:])]
+    log(f"eval_stats card vs CPU on the same logits: labels, darea, garea, inter equal {equal}; scores max rel "
+        f"diff {score_err:.2e} (bitwise {torch.equal(gpu[0], cpu[0])}); {int(gpu[4].sum().item())} intersecting pixels")
+    if not all(equal) or not score_err <= 1e-6:
+        raise AssertionError("eval_stats differ between the card and the CPU")
+
+    # Where an eval batch's time goes: each stage synchronised, the median of 3.
+    from rgbdseg_torch.data.device_preprocess import unpack_masks
+    from rgbdseg_torch.ops.losses import mask2former_loss
+    from rgbdseg_torch.train.evaluator import Evaluator
+
+    ev, gen = Evaluator(id2label), torch.Generator(device=pred.device).manual_seed(0)
+    stages = {"upload": [], "build": [], "forward": [], "loss": [], "stats": [], "metric": []}
+    with torch.no_grad():
+        for _ in range(3):
+            (px, pk, cl, vd), t_up = _timed(lambda: [torch.from_numpy(np.ascontiguousarray(a)).to(pred.device) for a in (
+                batch.pixel_values, batch.mask_labels_packed, batch.class_labels, batch.valid)])
+            pix, t_build = _timed(lambda: build_from_packed("map_10channel_case2", px, pp))
+            out, t_fwd = _timed(lambda: pred.model(pix))
+            _, t_loss = _timed(lambda: mask2former_loss(pred.cfg, out, unpack_masks(pk, (480, 640)), cl, vd, gen))
+            stats, t_stats = _timed(lambda: Evaluator._materialize_stats([t.cpu() for t in eval_stats(
+                out.class_queries_logits, out.masks_queries_logits, pk, vd, (480, 640), (480, 640))]))
+            _, t_metric = _timed(lambda: ev.update_from_stats(stats, batch.class_labels, batch.valid))
+            for k, t in zip(stages, (t_up, t_build, t_fwd, t_loss, t_stats, t_metric)):
+                stages[k].append(t)
+    log(f"eval stages ms, one batch of {EVAL_B} (median of 3): "
+        + ", ".join(f"{k} {sorted(v)[1]:.2f}" for k, v in stages.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -836,9 +1076,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     rows = check_kernels(rng, dev)
     rows.update(check_backward_kernels(rng, dev))
-    launches = run_slice(args.seed, rng, args.profile)
+    launches, pred = run_slice(args.seed, rng, args.profile)
     train_launches, step0, batch = run_train(args.seed, rng, args.profile)
     step0_gpu_vs_cpu(step0, batch)
+    for label, phase in (("builder", lambda: check_builder(rng, dev)),
+                         ("frame requests", lambda: run_frame_requests(rng, pred)),
+                         ("eval", lambda: run_eval(rng, pred))):
+        log(f"{label}: phase took {_timed(phase)[1] / 1e3:.1f} s")
     launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
 
     meta = {

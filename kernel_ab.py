@@ -116,7 +116,7 @@ def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
     old_cfg = sys.modules["parent_rgbdseg_torch.config"].ModelConfig(num_labels=40, version="0.4.0")
     preds = {"old": old_predictor_mod.Predictor(old_cfg, device="cuda", seed=seed),
              "new": Predictor(ModelConfig(num_labels=40, version="0.4.0"), device="cuda", seed=seed)}
-    frame = cs.synthetic_frame(rng)[None]
+    frame = cs.frame_stack(*cs.synthetic_frame(rng)[:2])[None]
     with torch.no_grad():
         logits = {k: p._forward(torch.from_numpy(frame).cuda()) for k, p in preds.items()}
     diff = max((a - b).abs().max().item() for a, b in zip(logits["old"], logits["new"]))

@@ -1,0 +1,127 @@
+"""A PNG reader on zlib and struct: the port's stand-in for PIL's
+``Image.open`` and cv2's ``imread``.
+
+Scope: 8-bit samples, not interlaced, colour types 0 (gray), 2 (RGB), 4 (gray
+and alpha) and 6 (RGBA), any of the five row filters. Anything else raises:
+16-bit or sub-byte samples, palettes, Adam7 interlacing, a tRNS chunk.
+
+- `load_rgb` / `load_gray` give PIL's ``convert("RGB")`` / ``convert("L")``
+  of the file (alpha dropped; gray replicated to RGB; RGB to L by PIL's
+  integer formula, `device_preprocess.pil_grayscale_u8`).
+- `load_unchanged` gives ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: gray as
+  (H, W), colour in cv2's order, BGR or BGRA. The annotation masks are read so
+  (channel 1 instance ids, channel 2 semantic ids, in that order).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from .device_preprocess import pil_grayscale_u8
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of the decompressed image data -> (h, w * bpp) uint8."""
+    stride = w * bpp
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != h * (stride + 1):
+        raise ValueError(f"PNG data holds {data.size} bytes, expected {h * (stride + 1)}")
+    rows = data.reshape(h, stride + 1)
+    out = np.zeros((h + 1, stride), np.uint8)  # row 0: the zero row above the image
+    for y in range(h):
+        ftype, line, prior = rows[y, 0], rows[y, 1:], out[y]
+        if ftype == 0:  # None
+            out[y + 1] = line
+        elif ftype == 1:  # Sub: a running sum per byte position modulo 256
+            out[y + 1] = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            out[y + 1] = line + prior
+        elif ftype in (3, 4):  # Average, Paeth: each pixel depends on its left neighbour
+            cur = bytearray(stride)
+            ln, up = line.tolist(), prior.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (ln[i] + pred) & 0xFF
+            out[y + 1] = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+    return out[1:]
+
+
+def read_png(path: str) -> np.ndarray:
+    """The file's samples as stored: (H, W) for gray, (H, W, C) otherwise, in the
+    file's channel order (gray, gray+alpha, RGB or RGBA), uint8."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos < len(blob):
+        length, ctype = struct.unpack(">I4s", blob[pos : pos + 8])
+        body = blob[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype in (b"tRNS", b"PLTE"):
+            raise ValueError(f"{path}: PNG {ctype.decode()} chunks are not supported")
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: bit depth {depth}, colour type {ctype}, interlace {interlace}; "
+            "only 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA are supported"
+        )
+    c = _CHANNELS[ctype]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
+    return pixels[..., 0] if c == 1 else pixels
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """PIL ``Image.open(path).convert("RGB")`` -> (H, W, 3) uint8."""
+    x = read_png(path)
+    if x.ndim == 2:
+        return np.repeat(x[..., None], 3, axis=-1)
+    if x.shape[-1] == 2:
+        return np.repeat(x[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(x[..., :3])
+
+
+def load_gray(path: str) -> np.ndarray:
+    """PIL ``Image.open(path).convert("L")`` -> (H, W) uint8."""
+    x = read_png(path)
+    if x.ndim == 2:
+        return x
+    if x.shape[-1] == 2:
+        return np.ascontiguousarray(x[..., 0])
+    return pil_grayscale_u8(torch.from_numpy(x[..., :3])).numpy()
+
+
+def load_unchanged(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: gray (H, W); gray with alpha,
+    RGB and RGBA as BGRA, BGR and BGRA, uint8."""
+    x = read_png(path)
+    if x.ndim == 2:
+        return x
+    if x.shape[-1] == 2:
+        x = np.concatenate([np.repeat(x[..., :1], 3, axis=-1), x[..., 1:]], axis=-1)
+    return np.ascontiguousarray(np.concatenate([x[..., 2::-1], x[..., 3:]], axis=-1))

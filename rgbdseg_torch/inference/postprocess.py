@@ -10,7 +10,8 @@ Mask2FormerImageProcessor.post_process_instance_segmentation semantics:
 5. nearest-resize the kept binary masks to the target size; keep score >=
    threshold and non-empty masks.
 Every step runs on the model's device; only the kept masks, at the target
-size, cross to the host.
+size, cross to the host. `eval_stats` (counterpart of `_eval_stats_device`)
+keeps even those there and returns the IoU statistics of the mAP.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data.device_preprocess import unpack_masks
 from ..ops.resize import resize_bilinear
 
 PROCESSOR_SIZE = (384, 384)
@@ -45,15 +47,51 @@ def _topq_binary(class_logits, mask_logits, resize_to=PROCESSOR_SIZE):
     return topk_scores * mask_scores, labels, binary_bool
 
 
-def _resize_nearest(masks: torch.Tensor, size_hw) -> torch.Tensor:
-    """torch F.interpolate(mode='nearest') on (N, H, W), with the JAX package's
-    float64 index formula `floor(dst * in / out)`, so the indices are exact."""
-    th, tw = size_hw
-    h, w = masks.shape[1:]
+def _nearest_indices(src_hw, dst_hw) -> tuple[np.ndarray, np.ndarray]:
+    """torch F.interpolate(mode='nearest') row and column indices, with the JAX
+    package's float64 formula `floor(dst * in / out)`, so they are its indices."""
+    h, w = src_hw
+    th, tw = dst_hw
     yi = np.minimum((np.arange(th) * (h / th)).astype(np.int64), h - 1)
     xi = np.minimum((np.arange(tw) * (w / tw)).astype(np.int64), w - 1)
-    masks = masks.index_select(1, torch.from_numpy(yi).to(masks.device))
-    return masks.index_select(2, torch.from_numpy(xi).to(masks.device))
+    return yi, xi
+
+
+def _resize_nearest(masks: torch.Tensor, size_hw) -> torch.Tensor:
+    """Nearest resize of (..., H, W) to `size_hw` (`_nearest_indices`)."""
+    if tuple(masks.shape[-2:]) == tuple(size_hw):
+        return masks
+    yi, xi = _nearest_indices(masks.shape[-2:], size_hw)
+    masks = masks.index_select(-2, torch.from_numpy(yi).to(masks.device))
+    return masks.index_select(-1, torch.from_numpy(xi).to(masks.device))
+
+
+@torch.no_grad()
+def eval_stats(class_logits, mask_logits, gt_packed, gt_valid, target_hw, gt_hw, resize_to=PROCESSOR_SIZE):
+    """Instance-eval statistics on the logits' device: all that mask mAP needs
+    except the masks, so only O(Q*T) numbers leave the device.
+
+    gt_packed: (B, T, ceil(gh*gw/8)) uint8, np.packbits of the padded GT masks
+    at gt_hw; gt_valid: (B, T) bool. Returns (scores (B, Q) float32, labels
+    (B, Q) int64, darea (B, Q), garea (B, T), inter (B, Q, T) float32): the
+    detection masks binarised at `resize_to` and nearest-resized to
+    `target_hw`, the GT nearest-resized from gt_hw, with the host path's
+    indices. The counts are integers below 2^24, summed exactly: the
+    intersections as a float32 product of 0/1 operands (float32 accumulation
+    of integers is exact there; a bfloat16 product would round its output).
+    """
+    scores, labels, det = _topq_binary(class_logits, mask_logits, resize_to)
+    b, q = labels.shape
+    t = gt_valid.shape[1]
+    det = _resize_nearest(det, target_hw)
+    gt = unpack_masks(gt_packed, gt_hw).bool() & gt_valid[:, :, None, None]
+    gt = _resize_nearest(gt, target_hw)
+    d = det.reshape(b, q, -1).to(torch.float32)
+    g = gt.reshape(b, t, -1).to(torch.float32)
+    inter = torch.bmm(d, g.transpose(1, 2))
+    darea = det.sum(dim=(2, 3)).to(torch.float32)
+    garea = gt.sum(dim=(2, 3)).to(torch.float32)
+    return scores, labels, darea, garea, inter
 
 
 @torch.no_grad()

@@ -1,12 +1,17 @@
-"""Predictor over a prebuilt channel stack
-(counterpart of `rgbdseg_tpu/inference/predictor.py::Predictor.predict_pixels`).
+"""Single-example predictor (counterpart of
+`rgbdseg_tpu/inference/predictor.py::Predictor`; reference: predictor.py:19-69).
 
-`Predictor(cfg, state_dict=None, device=None)` runs on the CUDA device unless
-`device` names another; with no CUDA device it raises rather than fall back to
-the CPU. Without a `state_dict` the weights are the port's seeded random
-initialisation (`utils.weights.init_weights`). The cv2-based channel builders
-of the JAX package are not ported yet: `predict_pixels` takes the version's
-channel stack (B, H, W, C) as built by them.
+`Predictor(cfg, state_dict=None, device=None, seed=0, preprocess=None)` runs on
+the CUDA device unless `device` names another; with no CUDA device it raises
+rather than fall back to the CPU. Without a `state_dict` the weights are the
+port's seeded random initialisation (`utils.weights.init_weights`).
+
+- `predict_example` takes a meta-JSON record of raw frames (PNG paths or uint8
+  arrays, `data/registry.py`), ships them to the device as one packed uint8
+  buffer (6 bytes per pixel for 0.4.0, at the frames' own size) and builds the
+  version's channel stack there (`data/device_preprocess.py`), each frame
+  resized from its own size to the target by the exact resizer twins.
+- `predict_pixels` takes a channel stack (B, H, W, C) already built.
 """
 
 from __future__ import annotations
@@ -16,9 +21,13 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, PreprocessConfig
+from ..data import registry as R
+from ..data.device_preprocess import build_pixels, packed_width
+from ..data.preprocess import output_size
 from ..models.mask2former import Mask2FormerRGBD
 from ..utils.weights import init_weights
+from ..versions import get as get_version
 from .postprocess import post_process_instance_segmentation
 
 
@@ -37,20 +46,53 @@ class Predictor:
         state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         device=None,
         seed: int = 0,
+        preprocess: Optional[PreprocessConfig] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.preprocess = preprocess or PreprocessConfig()
         model = Mask2FormerRGBD(cfg)
         if state_dict is None:
             init_weights(model, seed)
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
+        self.last_upload_bytes = 0  # host-to-device bytes of the last predict_example
 
     @torch.no_grad()
     def _forward(self, pixel_values: torch.Tensor):
         out = self.model(pixel_values)
         return out.class_queries_logits, out.masks_queries_logits
+
+    def _forward_raw(self, frames: list[np.ndarray]):
+        """Raw uint8 frames (rgb (H, W, 3) [, depth (h, w, 3)]) -> logits: one
+        host-to-device copy of the frames packed end to end, the channels built
+        on the device from views of it."""
+        packed = torch.from_numpy(np.concatenate([np.ascontiguousarray(f).reshape(-1) for f in frames]))
+        self.last_upload_bytes = packed.numel()
+        flat = packed.to(self.device)
+        views, start = [], 0
+        for f in frames:
+            views.append(flat[start : start + f.size].reshape(1, *f.shape))
+            start += f.size
+        pix = build_pixels(get_version(self.cfg.version).map_fn, views[0], views[1] if len(views) > 1 else None,
+                           self.preprocess)
+        return self._forward(pix)
+
+    def predict_example(self, example: dict, threshold: float = 0.5) -> dict:
+        """example: meta-JSON record {"image": rgb or [rgb, depth], "annotation":
+        optional}; an installed `registry.TRANSFORM` is applied to the colour
+        frame (and the annotation) before packing. Returns the post-processed
+        instances at the target size `output_size(preprocess)`."""
+        color, _ = R._color_and_mask(example)
+        frames = [color]
+        if packed_width(get_version(self.cfg.version).map_fn) > 3:
+            frames.append(R._depth_rgb(example["image"], 1))
+        cls_logits, mask_logits = self._forward_raw(frames)
+        return post_process_instance_segmentation(
+            cls_logits, mask_logits, threshold=threshold, target_sizes=[output_size(self.preprocess)],
+            return_binary_maps=True,
+        )[0]
 
     def predict_pixels(self, pixel_values: np.ndarray, threshold: float = 0.5) -> list[dict]:
         """(B, H, W, C) float channel stack -> per-image post-processed instances."""

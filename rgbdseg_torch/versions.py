@@ -71,7 +71,7 @@ class FusionSpec:
 class VersionEntry:
     channels: ChannelSpec
     fusion: FusionSpec
-    map_fn: str  # name of the input-pipeline map function (the JAX package's data.registry; channel builders are not ported yet)
+    map_fn: str  # name of the map function in data.registry (the port builds map_3channel and map_10channel_case2)
 
 
 def _e(channels: ChannelSpec, fusion: FusionSpec, map_fn: str) -> VersionEntry:

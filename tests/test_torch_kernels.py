@@ -408,3 +408,34 @@ def test_cuda_mca_backward_matches_plain(nk):
             ref = masked_cross_attention_plain_bwd(qb.float(), kb.float(), vb.float(), m, ab, gb.float())
             _assert_grad_close(got, ref, rel=2e-2, joint=True)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_channel_builder_equals_cpu_bitwise():
+    """A 720x1280 camera frame to the 480x640 0.4.0 stack on the card and on the
+    CPU (`data/device_preprocess.py`, no kernel of the port): the grayscale, the
+    resizes and the whole float stack equal bit for bit (the Sobel square root
+    is taken in float64 for that, `ops/sobel.py`)."""
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_pixels, pil_grayscale_u8
+    from rgbdseg_torch.ops.resize_exact import cv2_resize_linear_u8, pil_resize_u8
+
+    _need_cuda()
+    rng = np.random.RandomState(0)
+    rgb = rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[0:720, 0:1280]
+    depth = np.clip(np.round(150 + 0.1 * yy - 0.05 * xx), 0, 255).astype(np.uint8)
+    depth[200:400, 300:700] = 70
+    depth[rng.rand(720, 1280) < 0.01] = 0
+    cpu = [torch.from_numpy(a)[None] for a in (rgb, np.repeat(depth[..., None], 3, -1))]
+    gpu = [a.cuda() for a in cpu]
+    pp = PreprocessConfig(height=480, width=640)
+    stages = [
+        lambda r, d: pil_grayscale_u8(d),
+        lambda r, d: pil_resize_u8(r, (480, 640), has_channels=True),
+        lambda r, d: pil_resize_u8(d, (480, 640), has_channels=True),
+        lambda r, d: cv2_resize_linear_u8(pil_grayscale_u8(d), (480, 640), has_channels=False),
+        lambda r, d: build_pixels("map_10channel_case2", r, d, pp),
+    ]
+    for stage in stages:
+        assert torch.equal(stage(*gpu).cpu(), stage(*cpu))
