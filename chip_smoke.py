@@ -35,6 +35,10 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      plain backward's and the library yardstick's (the aten grid_sample backward
      for each level; SDPA's forward and backward less its forward), each from a
      replayed CUDA graph, the eager time, and a byte and operation bound;
+     then (5b) all four kernels with the bfloat16 operands the bf16 train step
+     gives them, at B=2, the backward ones through torch.autograd.grad of their
+     wrappers, each against its plain version on the same bfloat16 values,
+     timed beside the plain version and the library call in bfloat16;
   6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
      480x640 frames (stacks built as in phase 4) with up to 16 box instances
@@ -54,17 +58,35 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
   9. frame requests: 3 `Predictor.predict_example` requests of raw 720x1280
      frames (one packed uint8 upload each, 6 bytes per pixel, the stack built
      on the card), each launching 6 K1 and 9 K3; ms per request, bytes copied
-     to the device, and the logits against those of the CPU-built stack;
+     to the device, and the logits against those of the CPU-built stack
+     (numpy's a[None], batch stride 0), which must be equal bit for bit; the
+     pixel-level module alone on the two layouts names the first modules
+     whose outputs differ without the model's `standard_layout`;
   10. eval: `train.trainer.evaluate` over 8 synthetic 480x640 examples with
      their instance maps, batch 2 (raw frames and bit-packed masks uploaded),
      by the device-stats path and by the host mask path: identical metric
      dicts, 4 x (6 K1 + 9 K3) launches each; images/s, the eval loss and
      eval_map (random weights: printed, not checked); `eval_stats` of the same
      logits on the card and on the CPU: labels and counts equal;
-  11. a `kernels` JSON line; the last line is the device JSON.
-With --profile, phases 4 and 6 also profile one request and one train step
-(torch.profiler): the device's busy share and the kernels that take the most
-device time.
+  11. predict surface: a raw 720x1280 RGB frame and its depth written as PNGs
+     (`write_png`) and served by `predict_and_overlay_files` (the overlay at
+     720x1280, written and read back equal); `train.trainer.predict` over 8
+     examples made as the eval phase's and `process_prediction` (prediction and GT
+     COCO-RLE JSON, comparison PNGs); the native RLE codec must be in use and
+     equal the numpy one on every mask; stage times;
+  12. train full: batch 2 of raw 480x640 frames with 15-16 box instances
+     padded to 32 slots, uploaded packed (`put_batch`: compacted to the bucket
+     of 16, masks bit-packed), the stack built inside the step, gradient
+     accumulation over 2 micro-batches: 3 optimizer steps, 6 + 9 launches
+     forward and backward per micro-batch; first the compacted, packed
+     micro-step against the padded float one from the same weights and points;
+  13. bf16 step: from phase 12's weights and batch, one bf16 and one float32
+     step: the kernels launched with bfloat16 operands in the bf16 step only,
+     the gap in loss and gradient norm within a bound; 3 steady bf16 steps;
+  14. a `kernels` JSON line; the last line is the device JSON.
+With --profile, phases 4, 6 and 13 also profile one request, one train step
+and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
+busy share and the kernels that take the most device time.
 It needs one CUDA card and a checkout of the repository around it; without
 either it exits with code 1 and prints no result.
 """
@@ -73,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -86,6 +109,7 @@ F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 # K3 computes its float32 products on the tensor cores as three TF32 products
 # each (495 TFLOP/s dense TF32), so its float32 work runs at a third of that.
 F32_AS_3XTF32_FLOP_PER_S = 495e12 / 3
+BF16_FLOP_PER_S = 989e12  # dense bfloat16 on the tensor cores
 K1_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 K3_TOL, K3_TOL_BF16 = 1e-5, 2e-2
 # CPU vs GPU logits of the whole model, relative to the largest |logit|: both
@@ -99,7 +123,23 @@ SLICE_RTOL = 1e-3
 # d q, d k and d v together (with one key, d q and d k are exactly 0 in the
 # plain version).
 K1_BWD_RTOL = K3_BWD_RTOL = 1e-5
+# The backward kernels with bfloat16 operands (tests/test_torch_kernels.py): K1's
+# d value comes back in bfloat16, a rounding of each side, so 1e-2 x max |ref|
+# (d locations and d weights stay float32: K1_BWD_RTOL); K3 computes in float32
+# from the bfloat16 inputs and rounds d q, d k, d v to bfloat16, against the
+# float32 plain backward of the same bfloat16 values: 2e-2 x the largest |ref|.
+K1_BWD_RTOL_BF16_DV, K3_BWD_RTOL_BF16 = 1e-2, 2e-2
 TRAIN_B, TRAIN_T = 2, 16  # train batch and real instances per frame
+TRAIN_T_MAX = 32  # the train-full phase's padded slots (max_instances), compacted to the bucket of 16
+# The compacted and packed micro-step against the padded float one (phase 12):
+# the same forward, the criterion over 16 slots instead of 32 with the same
+# points; float32 sums in another order, cuDNN's backward and K1's atomics.
+TRAIN_FULL_RTOL = 1e-5
+# The bf16 step against the float32 one from the same weights and batch
+# (phase 13), relative (loss, gradient norm): 5 x the bf16-vs-f32 gap of the
+# port's tiny model on the CPU (tests/test_torch_train_full.py setup: 2.70e-2
+# and 1.90e-2), written before the first run on the card.
+BF16_GAP_BOUND = (0.135, 0.095)
 # Step 0 on GPU against CPU, relative (loss, gradient norm, worst kernel-fed
 # gradient leaf against its own max): f32 with TF32 off on both, so with the
 # same decoder attention masks they differ only by summation orders (cuDNN,
@@ -516,6 +556,116 @@ def check_backward_kernels(rng, dev) -> dict:
     return rows
 
 
+def check_bf16_kernels(rng, dev) -> list[dict]:
+    """Phase 5b: the four kernels with the bfloat16 operands the bf16 train step
+    gives them (value for K1; q, k, v and d out for K3), at its shapes (B=2),
+    each against its plain version on the same bfloat16 values; the backward
+    kernels through `torch.autograd.grad` of their wrappers. Device ms from a
+    CUDA graph, eager ms, the plain version's ms and the library call's in
+    bfloat16 (grid_sample and its aten backward, SDPA), and the bound with
+    bfloat16 bytes (operations: K1 float32 FMAs, K3 at the bfloat16 tensor-core
+    rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
+
+    def autograd_grads(key, fn, inputs, g):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        K.reset_launches()
+        grads = torch.autograd.grad(fn(*leaves), leaves, g)
+        if (K.LAUNCHES[key], K.LAUNCHES[f"{key}_bwd"]) != (1, 1):
+            raise AssertionError(f"bf16 {key}: autograd launched {dict(K.LAUNCHES)}")
+        return grads
+
+    rows = []
+
+    def report(name, shape, err, kernel, plain, library, nbytes, flops, rate):
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
+        row = dict(name=name, shape=shape, err=err, ms=time_ms(kernel), eager_ms=eager_ms(kernel),
+                   plain_ms=time_ms(plain, 10), library_ms=library(), bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"kernel bf16 {name} {shape} B={TRAIN_B}: ms {row['ms']:.4f} eager_ms {row['eager_ms']:.4f} plain_ms "
+            f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+            f"max_abs_err {err:.3e}")
+
+    value, loc, weights = k1_inputs(rng, dev, "model", TRAIN_B)
+    vb = value.bfloat16()
+    g = torch.from_numpy(rng.randn(TRAIN_B, L, NH * HD).astype(np.float32)).to(dev)
+    starts = [sum(h * w for h, w in LEVELS[:i]) for i in range(len(LEVELS))]
+    corners, imgs, grids = 0, [], []
+    for lvl, (h, w) in enumerate(LEVELS):
+        gx, gy, aw, _ = k1_level(value[:1], loc[:1], weights[:1], lvl)
+        corners += TRAIN_B * k1_corners(gx, gy, aw, h, w)
+        imgs.append(vb[:, starts[lvl] : starts[lvl] + h * w].permute(0, 2, 3, 1).reshape(TRAIN_B * NH, HD, h, w)
+                    .contiguous())
+        grids.append((loc[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(TRAIN_B * NH, L, P, 2) * 2 - 1)
+                     .bfloat16().contiguous())
+    err = _check("bf16 deform_sample_levels", KD.deform_sample_levels(vb, LEVELS, loc, weights),
+                 KD.deform_sample_levels_plain(vb, LEVELS, loc, weights), K1_TOL["bfloat16"])
+    log(f"kernel f32 deform_sample_levels all levels B={TRAIN_B} (the bf16 row's shape, for comparison): ms "
+        f"{time_ms(lambda: KD.deform_sample_levels(value, LEVELS, loc, weights)):.4f}")
+    report("deform_sample_levels", "all levels", err, lambda: KD.deform_sample_levels(vb, LEVELS, loc, weights),
+           lambda: KD.deform_sample_levels_plain(vb, LEVELS, loc, weights),
+           lambda: time_ms(lambda: [F.grid_sample(i, gr, align_corners=False) for i, gr in zip(imgs, grids)]),
+           vb.numel() * 2 + (loc.numel() + weights.numel() + g.numel()) * 4, corners * HD * 2, F32_FLOP_PER_S)
+
+    got = autograd_grads("deformable", lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w),
+                         (vb, loc, weights), g)
+    ref = KD.deform_sample_levels_plain_bwd(vb, LEVELS, loc, weights, g)
+    if got[0].dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 K1 backward: d value in {got[0].dtype}")
+    err = max(_check_grads("bf16 deform_sample_levels_bwd d value", got[:1], ref[:1], K1_BWD_RTOL_BF16_DV),
+              _check_grads("bf16 deform_sample_levels_bwd d loc, d weights", got[1:], ref[1:], K1_BWD_RTOL))
+    gos = [torch.randn(TRAIN_B * NH, HD, L, P, device=dev, dtype=torch.bfloat16) for _ in LEVELS]
+    report("deform_sample_levels_bwd", "all levels", err,
+           lambda: KD._launch_bwd(vb, loc, weights, LEVELS, starts, True, g),
+           lambda: KD.deform_sample_levels_plain_bwd(vb, LEVELS, loc, weights, g),
+           lambda: time_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(go, i, gr, 0, 0, False, [True, True])
+                                    for go, i, gr in zip(gos, imgs, grids)]),
+           2 * vb.numel() * 2 + 2 * (loc.numel() + weights.numel()) * 4 + g.numel() * 4,
+           k1_bwd_cells(loc) * HD * 4, F32_FLOP_PER_S)
+
+    for nk in KEYS:
+        q, k, v, m, ab = mca_inputs(rng, nk, dev, TRAIN_B)
+        qb, kb, vb_ = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        gb = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).to(dev).bfloat16()
+        allowed = ~((m < 0) & ~ab[:, :, None])[:, None]
+        pairs = q.shape[1] * HD * allowed.sum().item()
+        err = _check(f"bf16 masked_cross_attention K={nk}", KM.masked_cross_attention(qb, kb, vb_, m, ab).float(),
+                     KM.masked_cross_attention_plain(qb, kb, vb_, m, ab).float(), K3_TOL_BF16)
+        log(f"kernel f32 masked_cross_attention K={nk} B={TRAIN_B} (the bf16 row's shape, for comparison): ms "
+            f"{time_ms(lambda: KM.masked_cross_attention(q, k, v, m, ab)):.4f}")
+        report("masked_cross_attention", f"K={nk}", err, lambda: KM.masked_cross_attention(qb, kb, vb_, m, ab),
+               lambda: KM.masked_cross_attention_plain(qb, kb, vb_, m, ab),
+               lambda: time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb_, attn_mask=allowed, scale=1.0)),
+               (2 * qb.numel() + kb.numel() + vb_.numel()) * 2 + m.numel() * 4 + ab.numel(), 4 * pairs,
+               BF16_FLOP_PER_S)
+        got = autograd_grads("masked_attention", lambda a, b_, c: KM.masked_cross_attention(a, b_, c, m, ab),
+                             (qb, kb, vb_), gb)
+        if any(t.dtype != torch.bfloat16 for t in got):
+            raise AssertionError("bf16 K3 backward: gradients not in bfloat16")
+        ref = KM.masked_cross_attention_plain_bwd(qb.float(), kb.float(), vb_.float(), m, ab, gb.float())
+        err = _check_grads(f"bf16 masked_cross_attention_bwd K={nk}", [t.float() for t in got], ref,
+                           K3_BWD_RTOL_BF16, joint=True)
+        out, lse = KM._launch(qb, kb, vb_, m, ab)
+        qkv = [t.detach().requires_grad_() for t in (qb, kb, vb_)]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*qkv, attn_mask=allowed, scale=1.0)
+
+        report("masked_cross_attention_bwd", f"K={nk}", err,
+               lambda: KM._launch_bwd(qb, kb, vb_, m, ab, out, lse, gb),
+               lambda: KM.masked_cross_attention_plain_bwd(qb, kb, vb_, m, ab, gb),
+               lambda: time_ms(lambda: torch.autograd.grad(lib_fwd(), qkv, gb), 20) - time_ms(lib_fwd, 20),
+               (2 * (qb.numel() + kb.numel() + vb_.numel()) + 2 * qb.numel()) * 2 + m.numel() * 4
+               + lse.numel() * 4 + ab.numel(), 10 * pairs, BF16_FLOP_PER_S)
+    torch.cuda.synchronize()
+    return rows
+
+
 def synthetic_frame(rng, h: int = 480, w: int = 640, boxes: int = 4):
     """Raw frames as a camera gives them: a uint8 RGB frame (h, w, 3), an 8-bit
     depth plane (h, w) with 1% holes (0) and its instance map (h, w) uint8 (box
@@ -687,6 +837,14 @@ def run_train(seed: int, rng, profile: bool = False):
                          (np.stack(frames), masks, classes, valid)))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     expected = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9}
+    attn = model.pixel_level_module.pixel_decoder.layer0.self_attn
+    cross = model.transformer_module.layer0.cross_attn
+    fed = {"value_proj": attn.value_proj, "sampling_offsets": attn.sampling_offsets,
+           "attention_weights": attn.attention_weights, "decoder q_proj": cross.q_proj,
+           "decoder k_proj": cross.k_proj, "decoder v_proj": cross.v_proj}
+    reached = {}  # each kernel-fed weight's |gradient| sum, as the backward leaves it (apply_step clears it)
+    hooks = [mod.weight.register_post_accumulate_grad_hook(lambda p, n=name: reached.__setitem__(n, p.grad.abs().sum()))
+             for name, mod in fed.items()]
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     for step in range(3):
@@ -702,12 +860,10 @@ def run_train(seed: int, rng, profile: bool = False):
             raise AssertionError(f"step {step}: loss {loss}, grad norm {gnorm}")
         if delta != expected:
             raise AssertionError(f"step {step} launched {delta}; expected {expected}")
-    attn = model.pixel_level_module.pixel_decoder.layer0.self_attn
-    cross = model.transformer_module.layer0.cross_attn
-    for name, mod in (("value_proj", attn.value_proj), ("sampling_offsets", attn.sampling_offsets),
-                      ("attention_weights", attn.attention_weights), ("decoder q_proj", cross.q_proj),
-                      ("decoder k_proj", cross.k_proj), ("decoder v_proj", cross.v_proj)):
-        if mod.weight.grad is None or not mod.weight.grad.abs().sum().item() > 0:
+    for h in hooks:
+        h.remove()
+    for name in fed:
+        if name not in reached or not reached[name].item() > 0:
             raise AssertionError(f"no gradient reached {name} through the kernels")
     log(f"train: {sum(p.numel() for p in model.parameters())} parameters, batch {TRAIN_B}, "
         f"{valid.sum(1).tolist()} instances; gradients reach value_proj, sampling_offsets, attention_weights "
@@ -893,12 +1049,17 @@ def run_frame_requests(rng, pred) -> None:
     # the same stack forwarded again: how far the forward itself varies from run to run
     again = [t.cpu() for t in pred._forward(stack)]
     for name, g, c, a in zip(("class", "mask"), raw, ref, again):
-        diff, scale = (g - c).abs().max().item(), c.abs().max().item()
-        log(f"frame request {name} logits, stack built on the card vs on the CPU: max_abs_diff {diff:.3e}, "
-            f"max |logit| {scale:.3e}, tol {SLICE_RTOL:g} x max(1, max |logit|); the CPU-built stack "
-            f"forwarded twice: max_abs_diff {(a - c).abs().max().item():.3e}")
-        if not (torch.isfinite(g).all() and diff <= SLICE_RTOL * max(1.0, scale)):
+        diff = (g - c).abs().max().item()
+        log(f"frame request {name} logits, stack built on the card vs the CPU-built stack (numpy's a[None], batch "
+            f"stride 0): max_abs_diff {diff:.3e} (must be 0); the CPU-built stack forwarded twice: max_abs_diff "
+            f"{(a - c).abs().max().item():.3e}")
+        if not (torch.isfinite(g).all() and diff == 0):
             raise AssertionError(f"frame request {name} logits differ by {diff}")
+    # The layout trace: the pixel-level module alone (without the model's
+    # standard_layout) on the two layouts, the first modules whose outputs differ.
+    lines = trace_layouts(pred.model.pixel_level_module, stack, stack.clone(memory_format=torch.contiguous_format))
+    for line in lines or ["no module's output differs"]:
+        log(f"frame request layout trace (pixel-level module, batch stride 0 vs full): {line}")
     log(f"frame requests: per-request ms {[round(x, 3) for x in per_request]}")
 
     # Where a frame request's time goes: each stage synchronised, the median of 3.
@@ -922,6 +1083,50 @@ def run_frame_requests(rng, pred) -> None:
     log(f"frame request 0: stack built on the card vs on the CPU bitwise {torch.equal(pix, stack)}, max_abs_diff "
         f"{(pix - stack).abs().max().item():.3e}; its (class, mask) logits vs the raw path's {logit_diffs[0]}, "
         f"vs the CPU-built stack's {logit_diffs[1]}")
+
+
+def trace_layouts(model, x_a, x_b) -> list[str]:
+    """Forward x_a and x_b (the same values in two layouts) through `model` in
+    eval mode with a hook on every module; returns a line for each of the first
+    modules (in the order they finish) whose output differs between the two,
+    with their inputs' strides and whether the inputs were equal."""
+    import torch
+
+    records = {0: [], 1: []}
+    run = [0]
+
+    def first_tensor(t):
+        while isinstance(t, (tuple, list)) and t:
+            t = t[0]
+        return t if isinstance(t, torch.Tensor) else None
+
+    def hook(name):
+        def fn(module, inputs, output):
+            i, o = first_tensor(inputs), first_tensor(output)
+            if o is not None:
+                records[run[0]].append((name, type(module).__name__, None if i is None else i.detach().clone(),
+                                        None if i is None else tuple(i.stride()), o.detach().clone()))
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        with torch.no_grad():
+            for k, x in enumerate((x_a, x_b)):
+                run[0] = k
+                model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    lines = []
+    for (name, kind, ia, sa, oa), (_, _, ib, sb, ob) in zip(records[0], records[1]):
+        if torch.equal(oa, ob):
+            continue
+        same_in = ia is not None and ib is not None and torch.equal(ia, ib)
+        lines.append(f"{name} ({kind}): output max_abs_diff {(oa - ob).abs().max().item():.3e}; inputs equal "
+                     f"{same_in}, input strides {sa} vs {sb}")
+        if len(lines) == 3:
+            break
+    return lines
 
 
 def eval_batches(rng, n: int = EVAL_N, b: int = EVAL_B):
@@ -1039,11 +1244,314 @@ def run_eval(rng, pred) -> None:
         + ", ".join(f"{k} {sorted(v)[1]:.2f}" for k, v in stages.items()))
 
 
+class EvalSet:
+    """Eval examples (`eval_batches`) as the duck-typed dataset `process_prediction`
+    reads: (the card-built float stack, masks, classes, valid) per example."""
+
+    def __init__(self, batches, stacks):
+        self.items = [(stack, b.mask_labels[i], b.class_labels[i], b.valid[i])
+                      for b, batch_stacks in zip(batches, stacks) for i, stack in enumerate(batch_stacks)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def run_predict_surface(rng, pred, out_dir: Path) -> None:
+    """Phase 11: the predict surface at full width. A raw 720x1280 RGB frame and
+    its depth plane written as PNGs with `write_png`, served from the files by
+    `predict_and_overlay_files` (the overlay at the RGB's size, written and read
+    back); `train.trainer.predict` over 8 examples made as the eval phase's, then
+    `process_prediction` writes the prediction and GT COCO-RLE JSON and the
+    comparison PNGs; the native RLE codec must be in use and give the numpy
+    codec's string for every mask. Stage times: forward, post-processing, RLE
+    and JSON, PNG writing."""
+    import torch
+
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_from_packed
+    from rgbdseg_torch.data.image_io import read_png, write_png
+    from rgbdseg_torch.inference import export, rle, visualize
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.train.trainer import predict
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rgb, depth, _ = synthetic_frame(rng, 720, 1280)
+    paths = [str(out_dir / "frame_rgb.png"), str(out_dir / "frame_depth.png")]
+    _, t_write = _timed(lambda: [write_png(p, a) for p, a in zip(paths, (rgb, depth))])
+    if not (np.array_equal(read_png(paths[0]), rgb) and np.array_equal(read_png(paths[1]), depth)):
+        raise AssertionError("write_png: the frame PNGs do not read back equal")
+    overlay = str(out_dir / "overlay.png")
+    K.reset_launches()
+    (res, vis), ms = _timed(lambda: pred.predict_and_overlay_files(paths, threshold=0.0, save=overlay))
+    _launch_check("predict_and_overlay_files", SERVE_LAUNCHES)
+    if vis.shape != (720, 1280, 3) or not np.array_equal(read_png(overlay), vis):
+        raise AssertionError(f"overlay {vis.shape} is not the RGB's size or does not read back equal")
+    log(f"predict surface: frame PNGs written in {t_write:.1f} ms; predict_and_overlay_files {ms:.2f} ms, "
+        f"{len(res['segments_info'])} segments at {res['segmentation'].shape[1:]}, overlay {vis.shape} written "
+        f"and read back equal, launches {dict(K.LAUNCHES)}")
+
+    pp = PreprocessConfig(height=480, width=640)
+    batches = eval_batches(rng)
+    id2label = {i: f"class{i}" for i in range(pred.cfg.num_labels)}
+    K.reset_launches()
+    (outputs, metrics), t_fwd = _timed(lambda: predict(pred.model, batches, id2label, pp, num_examples=EVAL_N))
+    _launch_check("trainer.predict", {k: 2 * v * len(batches) for k, v in SERVE_LAUNCHES.items()})
+    if [o[0].shape for o in outputs] != [(EVAL_B, pred.cfg.num_queries, pred.cfg.num_labels + 1)] * len(batches) \
+            or not all(
+            np.isfinite(o[1]).all() for o in outputs):
+        raise AssertionError("trainer.predict: logits of the wrong shape or not finite")
+    with torch.no_grad():
+        stacks = [build_from_packed("map_10channel_case2", torch.from_numpy(b.pixel_values).to(pred.device), pp)
+                  .cpu().numpy() for b in batches]
+    data = EvalSet(batches, stacks)
+    files = {k: str(out_dir / k) for k in ("pred.json", "gt.json", "comparison")}
+    # Where process_prediction's time goes: its stages timed inside the one call.
+    stages = {"post_process": 0.0, "rle_and_json": 0.0, "png_writing": 0.0}
+    patched = [(export, "post_process_instance_segmentation", "post_process"),
+               (export, "predictions_to_json", "rle_and_json"), (export, "gt_to_json", "rle_and_json"),
+               (visualize, "save_comparison_images", "png_writing")]
+    originals = [getattr(m, n) for m, n, _ in patched]
+
+    def timing(fn, stage):
+        def call(*a, **k):
+            out, t = _timed(lambda: fn(*a, **k))
+            stages[stage] += t
+            return out
+        return call
+
+    for (m, n, stage), fn in zip(patched, originals):
+        setattr(m, n, timing(fn, stage))
+    try:
+        results, t_all = _timed(lambda: export.process_prediction(
+            outputs, data, id2label, files["pred.json"], files["gt.json"], files["comparison"], threshold=0.0))
+    finally:
+        for (m, n, _), fn in zip(patched, originals):
+            setattr(m, n, fn)
+    written = sorted(os.listdir(files["comparison"]))
+    if len(results) != EVAL_N or len(written) != EVAL_N:
+        raise AssertionError(f"process_prediction: {len(results)} results, {len(written)} comparison PNGs")
+    preds, gts = (json.load(open(files[k])) for k in ("pred.json", "gt.json"))
+    n_masks = sum(len(r["segments_info"]) for r in results)
+    if len(preds) != n_masks or len(gts) != sum(int(b.valid.sum()) for b in batches):
+        raise AssertionError("process_prediction: JSON record counts differ from the results and the GT")
+
+    codec = rle.codec()
+    if not codec.startswith("native"):
+        raise AssertionError(f"the native RLE codec did not load: {codec}")
+    masks = [m for r in results for m in r["segmentation"]] + [m for _, ms_, _, v in data.items for m in ms_[v]]
+    for m in masks:
+        counts = rle.mask_to_counts(m)
+        if rle.encode_counts_string(counts) != rle._encode_counts_np(counts):
+            raise AssertionError("native and numpy RLE strings differ")
+
+    log(f"predict surface: trainer.predict over {EVAL_N} examples in batches of {EVAL_B} (the forward twice: "
+        f"logits, then the test_ metrics) {t_fwd:.1f} ms, test_loss {metrics['test_loss']:.6f}; "
+        f"process_prediction {t_all:.1f} ms: {n_masks} predicted and {len(gts)} GT masks as COCO-RLE, "
+        f"{len(written)} comparison PNGs; RLE codec {codec}, its strings equal the numpy codec's for all "
+        f"{len(masks)} masks")
+    log(f"predict surface stages ms: forward {t_fwd:.2f} (trainer.predict, with its metrics pass); inside "
+        f"process_prediction: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f", the rest (JSON dumps, directories) {t_all - sum(stages.values()):.2f}")
+
+
+def train_batch(rng, cfg, t_max: int = TRAIN_T_MAX, boxes: int = TRAIN_T):
+    """A batch of TRAIN_B raw 480x640 frames packed uint8 (B, 480, 640, 6), with
+    up to `boxes` box instances each from the instance map, padded to `t_max`
+    slots, and the masks' bit-packed twin; and the float stack the card builds
+    of the same frames."""
+    from rgbdseg_torch.data.pipeline import Batch
+
+    frames, masks = [], np.zeros((TRAIN_B, t_max, 480, 640), np.float32)
+    for i in range(TRAIN_B):
+        rgb, depth, inst = synthetic_frame(rng, boxes=boxes)
+        frames.append(np.concatenate([rgb, depth_rgb(depth)], axis=-1))
+        masks[i, :boxes] = np.stack([inst == j + 1 for j in range(boxes)])
+    valid = masks.any(axis=(2, 3))  # a box that later boxes cover whole is no instance
+    classes = rng.randint(0, cfg.num_labels, (TRAIN_B, t_max))
+    packed = np.packbits(masks.astype(bool).reshape(TRAIN_B, t_max, -1), axis=-1)
+    return Batch(np.stack(frames), masks, classes, valid, mask_labels_packed=packed)
+
+
+def slot_stable_uniform(shape_limits):
+    """Point coordinates that depend only on (slot, point), as the CPU tests
+    inject them: the first n slots of a (b, n, s, 2) draw are the same for every
+    n, so a criterion over 16 compacted slots samples the points the one over
+    32 padded slots samples for the same real instances."""
+    import torch
+
+    b, n, s = shape_limits
+    master = torch.from_numpy(np.random.RandomState(7).rand(b, n, s, 2).astype(np.float32))
+
+    def uniform(generator, shape):
+        if len(shape) == 3:  # the matcher's (B, P, 2)
+            return master[: shape[0], 0, : shape[1]]
+        return master[: shape[0], : shape[1], : shape[2]]
+
+    return uniform
+
+
+def run_train_full(seed: int, rng, pp_hw=(480, 640)):
+    """Phase 12: the 0.4.0 train step as a user runs it: raw uint8 frames and
+    bit-packed masks uploaded (`put_batch`: targets compacted from 32 slots to
+    the bucket of 16), the stack built inside the step, and
+    gradient_accumulation_steps=2: 3 optimizer steps of 2 micro-batches each.
+    First, from the step-0 weights and a re-seeded generator, the compacted and
+    packed micro-step against the padded one with float masks and the card-built
+    float stack: loss and gradient norm within TRAIN_FULL_RTOL. Returns the
+    step-0 state, the two micro-batches and the steady step times."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.data.device_preprocess import build_from_packed
+    from rgbdseg_torch.data.pipeline import Batch
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops import losses
+    from rgbdseg_torch.train.arguments import TrainingArguments
+    from rgbdseg_torch.train.optim import global_norm
+    from rgbdseg_torch.train.trainer import apply_step, build_training, micro_step, put_batch
+
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    pp = PreprocessConfig(height=pp_hw[0], width=pp_hw[1])
+    args = TrainingArguments(learning_rate=1e-4, weight_decay=0.05, per_device_train_batch_size=TRAIN_B,
+                             gradient_accumulation_steps=2)
+    model, opt = build_training(cfg, args, num_examples=6 * TRAIN_B, seed=seed)
+    step0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    host = [train_batch(rng, cfg) for _ in range(2)]
+    micro = [put_batch(b, args, "cuda") for b in host]
+    up_bytes = [sum(t.numel() * t.element_size() for t in m) for m in micro]
+    if [tuple(m.mask_labels.shape[:2]) for m in micro] != [(TRAIN_B, TRAIN_T)] * 2 or micro[0].pixel_values.dtype \
+            != torch.uint8 or micro[0].mask_labels.dtype != torch.uint8:
+        raise AssertionError(f"put_batch: {[tuple(m.mask_labels.shape) for m in micro]}, not packed and compacted")
+
+    # The compacted, packed micro-step against the padded float one, from the same weights.
+    stack = build_from_packed("map_10channel_case2", torch.from_numpy(host[0].pixel_values).cuda(), pp)
+    padded = put_batch(Batch(stack.cpu().numpy(), host[0].mask_labels, host[0].class_labels, host[0].valid),
+                       TrainingArguments(compact_instances=False, pack_targets=False), "cuda")
+    original = losses._uniform
+    losses._uniform = slot_stable_uniform((TRAIN_B, TRAIN_T_MAX, int(cfg.train_num_points * cfg.oversample_ratio)))
+    readings = []
+    try:
+        for b in (micro[0], padded):
+            model.load_state_dict(step0)
+            loss, _ = micro_step(model, opt, b, torch.Generator(device="cuda").manual_seed(seed), pp)
+            readings.append((loss.item(), global_norm([p.grad for p in model.parameters() if p.grad is not None])
+                             .item()))
+            opt.zero_grad(set_to_none=True)
+    finally:
+        losses._uniform = original
+    model.load_state_dict(step0)
+    (lc, nc), (lp, np_) = readings
+    rel = (abs(lc - lp) / abs(lp), abs(nc - np_) / abs(np_))
+    log(f"train full: compacted (16 slots) and packed micro-step vs padded (32 slots) float one, same weights and "
+        f"points: loss {lc:.7f} / {lp:.7f}, grad norm {nc:.6f} / {np_:.6f}, relative {rel[0]:.2e} / {rel[1]:.2e} "
+        f"(tol {TRAIN_FULL_RTOL:g})")
+    if not max(rel) <= TRAIN_FULL_RTOL:
+        raise AssertionError(f"compacted and padded micro-steps differ: {rel}")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    expected = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9}
+    steady = []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(3):
+        times, losses_ = [], []
+        for i, b in enumerate(micro):
+            K.reset_launches()
+            (loss, _), t = _timed(lambda: micro_step(model, opt, b, gen, pp))
+            _launch_check(f"train full step {step} micro-batch {i}", expected)
+            times.append(t)
+            losses_.append(loss.item())
+        norm, t_apply = _timed(lambda: apply_step(opt, len(micro)))
+        norm = norm.item()
+        if not (np.isfinite(losses_).all() and np.isfinite(norm)):
+            raise AssertionError(f"train full step {step}: losses {losses_}, grad norm {norm}")
+        total = sum(times) + t_apply
+        if step:
+            steady.append(total)
+        log(f"train full step {step}: {total:.2f} ms (micro-steps {times[0]:.2f} + {times[1]:.2f}, apply "
+            f"{t_apply:.2f}), losses {[round(x, 6) for x in losses_]}, mean-gradient norm {norm:.6f}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"train full: {up_bytes} bytes uploaded per micro-batch (uint8 frames {micro[0].pixel_values.numel()} B, "
+        f"bit-packed masks {micro[0].mask_labels.numel()} B of 16 slots), 6 K1 + 9 K3 forward and 6 + 9 backward "
+        f"launches per micro-batch; steady optimizer steps {[round(x, 2) for x in steady]} ms, "
+        f"{[int(v.sum()) for v in (host[0].valid, host[1].valid)]} real instances per micro-batch")
+    return step0, micro, steady
+
+
+def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile: bool = False) -> None:
+    """Phase 13: from the train-full phase's step-0 weights and first micro-batch,
+    one optimizer step under the bf16 policy and one in float32: both finite, the
+    kernels launched with bfloat16 operands in the bf16 step only, the relative
+    gap in loss and gradient norm within BF16_GAP_BOUND; then 3 steady steps of
+    each policy, timed (with `profile`, a fourth of each under the profiler)."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
+    from rgbdseg_torch.train.arguments import TrainingArguments
+    from rgbdseg_torch.train.trainer import build_training, train_step
+
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    pp = PreprocessConfig(height=pp_hw[0], width=pp_hw[1])
+    by_dtype = {}
+
+    def counting(module):  # the launches by the operand dtype the wrapper passed (the last int flag)
+        original = module.launch
+
+        def launch(name, *a):
+            by_dtype[(name, "bfloat16" if a[-1] else "float32")] = by_dtype.get(
+                (name, "bfloat16" if a[-1] else "float32"), 0) + 1
+            return original(name, *a)
+
+        return original, launch
+
+    (kd_orig, kd_launch), (km_orig, km_launch) = counting(KD), counting(KM)
+    KD.launch, KM.launch = kd_launch, km_launch
+    readings, times = {}, {}
+    try:
+        for bf16 in (True, False):
+            model, opt = build_training(cfg, TrainingArguments(learning_rate=1e-4, weight_decay=0.05, bf16=bf16,
+                                                               per_device_train_batch_size=TRAIN_B), 8, seed=seed)
+            model.load_state_dict(step0)
+            by_dtype.clear()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            loss, _, norm = train_step(model, opt, micro[0], gen, pp)
+            readings[bf16] = (loss.item(), norm.item(), dict(by_dtype))
+            times[bf16] = [_timed(lambda: train_step(model, opt, micro[i % 2], gen, pp))[1] for i in range(4)][1:]
+            if profile:
+                profile_call(f"{'bf16' if bf16 else 'float32'} train step (one micro-batch)",
+                             lambda: train_step(model, opt, micro[0], gen, pp))
+            del model, opt
+    finally:
+        KD.launch, KM.launch = kd_orig, km_orig
+    (lb, nb, db), (lf, nf, df) = readings[True], readings[False]
+    want = {"bfloat16": {("deformable", "bfloat16"): 6, ("deformable_bwd", "bfloat16"): 6,
+                         ("masked_attention", "bfloat16"): 9, ("masked_attention_bwd", "bfloat16"): 9},
+            "float32": {("deformable", "float32"): 6, ("deformable_bwd", "float32"): 6,
+                        ("masked_attention", "float32"): 9, ("masked_attention_bwd", "float32"): 9}}
+    gap = (abs(lb - lf) / abs(lf), abs(nb - nf) / abs(nf))
+    log(f"bf16 step: loss {lb:.6f} (float32 {lf:.6f}), grad norm {nb:.6f} (float32 {nf:.6f}); relative gap "
+        f"{gap[0]:.3e} / {gap[1]:.3e} (bound {BF16_GAP_BOUND}); launches by operand dtype: bf16 step "
+        f"{sorted(db.items())}, float32 step {sorted(df.items())}")
+    if db != want["bfloat16"] or df != want["float32"]:
+        raise AssertionError(f"bf16 step launches {db}, float32 step {df}; expected {want}")
+    if not (all(np.isfinite((lb, nb, lf, nf))) and gap[0] <= BF16_GAP_BOUND[0] and gap[1] <= BF16_GAP_BOUND[1]):
+        raise AssertionError(f"bf16 step: gap {gap} outside {BF16_GAP_BOUND}")
+    log(f"bf16 step: steady steps of one micro-batch (batch {TRAIN_B}, packed and compacted): bf16 "
+        f"{[round(x, 2) for x in times[True]]} ms, float32 {[round(x, 2) for x in times[False]]} ms; steady float32 "
+        f"optimizer steps of 2 micro-batches (phase 12) {[round(x, 2) for x in steady_f32]} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one request and one train step: device busy share and the top kernels")
+                    help="also profile one request, one train step and one bf16 and one float32 step: device busy "
+                         "share and the top kernels")
     args = ap.parse_args(argv)
 
     repo = Path(__file__).resolve().parent
@@ -1076,13 +1584,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     rows = check_kernels(rng, dev)
     rows.update(check_backward_kernels(rng, dev))
+    check_bf16_kernels(rng, dev)
     launches, pred = run_slice(args.seed, rng, args.profile)
     train_launches, step0, batch = run_train(args.seed, rng, args.profile)
     step0_gpu_vs_cpu(step0, batch)
     for label, phase in (("builder", lambda: check_builder(rng, dev)),
                          ("frame requests", lambda: run_frame_requests(rng, pred)),
-                         ("eval", lambda: run_eval(rng, pred))):
+                         ("eval", lambda: run_eval(rng, pred)),
+                         ("predict surface", lambda: run_predict_surface(rng, pred, repo / "build" / "chip_smoke"))):
         log(f"{label}: phase took {_timed(phase)[1] / 1e3:.1f} s")
+    (step0, micro, steady), t_full = _timed(lambda: run_train_full(args.seed, rng))
+    log(f"train full: phase took {t_full / 1e3:.1f} s")
+    _, t_bf16 = _timed(lambda: run_bf16_step(args.seed, step0, micro, steady, profile=args.profile))
+    log(f"bf16 step: phase took {t_bf16 / 1e3:.1f} s")
     launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
 
     meta = {

@@ -27,9 +27,12 @@ has what it needs (else it says so and is skipped):
   weights, serve the same 480x640 frame in turns old, new, new, old
   (`--requests` rounds): median request ms of each, and their logits'
   difference.
+- train steps, for a parent with `train.trainer.train_step`: both commits'
+  full-width models, with the same seeded weights, take `chip_smoke.py`
+  phase 6's train step (batch 2 of 480x640 float stacks, 16 box slots) in
+  turns old, new, new, old (`--requests` rounds): median step ms of each.
 
-Prints one line per shape and a JSON line; needs one CUDA card. For the train
-step, run `chip_smoke.py` in DIR and in this tree in the same chip call.
+Prints one line per shape and a JSON line; needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -133,6 +136,48 @@ def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
     return {"median_ms": med, "ms": times, "logits_max_abs_diff": diff}
 
 
+def train_ab(seed: int, rng, n: int) -> dict:
+    """Phase 6's train step on both commits' full-width 0.4.0 models (same seeded
+    weights, the same batch, a generator each), in turns old, new, new, old."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.train import trainer as new_trainer
+    from rgbdseg_torch.train.arguments import TrainingArguments
+
+    old_trainer = importlib.import_module("parent_rgbdseg_torch.train.trainer")
+    old_args = importlib.import_module("parent_rgbdseg_torch.train.arguments").TrainingArguments
+    old_cfg = sys.modules["parent_rgbdseg_torch.config"].ModelConfig(num_labels=40, version="0.4.0")
+    kw = dict(learning_rate=1e-4, weight_decay=0.05, per_device_train_batch_size=cs.TRAIN_B)
+    trainers = {"old": old_trainer, "new": new_trainer}
+    state = {"old": old_trainer.build_training(old_cfg, old_args(**kw), 8, seed=seed),
+             "new": new_trainer.build_training(ModelConfig(num_labels=40, version="0.4.0"), TrainingArguments(**kw), 8,
+                                               seed=seed)}
+    frames, masks = [], []
+    for _ in range(cs.TRAIN_B):
+        rgb, depth, inst = cs.synthetic_frame(rng, boxes=cs.TRAIN_T)
+        frames.append(cs.frame_stack(rgb, depth))
+        masks.append(np.stack([inst == i + 1 for i in range(cs.TRAIN_T)]).astype(np.float32))
+    masks = np.stack(masks)
+    arrays = (np.stack(frames), masks, rng.randint(0, 40, (cs.TRAIN_B, cs.TRAIN_T)), masks.any(axis=(2, 3)))
+    batch = new_trainer.TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays))
+    gens = {k: torch.Generator(device="cuda").manual_seed(seed) for k in trainers}
+
+    def step(k):
+        return trainers[k].train_step(*state[k], batch, gens[k])
+
+    times = {"old": [], "new": []}
+    for k in ("old", "new", "new", "old"):  # warm-up (step 0 pays cuDNN and cuBLAS set-up), in the timed order
+        step(k)
+    for _ in range(n):
+        for k in ("old", "new", "new", "old"):
+            times[k].append(cs._timed(lambda: step(k))[1])
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    cs.log(f"ab train steps ({2 * n} each, turns old/new/new/old): median old {med['old']:.2f} ms, "
+           f"new {med['new']:.2f} ms; min old {min(times['old']):.2f}, new {min(times['new']):.2f}")
+    return {"median_ms": med, "ms": times}
+
+
 def ab(label: str, old, new, iters: int = 50) -> dict:
     """Device ms (CUDA graph) and eager ms per call, each in the order old, new, new, old."""
     row = {"shape": label}
@@ -155,7 +200,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True, help="checkout of the earlier commit")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--requests", type=int, default=10, help="timed rounds of old/new/new/old requests")
+    ap.add_argument("--requests", type=int, default=10,
+                    help="timed rounds of old/new/new/old requests, and of train steps")
     args = ap.parse_args(argv)
     import torch
 
@@ -183,7 +229,12 @@ def main(argv=None) -> int:
         rows += forward_ab(old_deform, old_mca, rng)
     torch.cuda.synchronize()
     e2e = requests_ab(old_predictor, args.seed, rng, args.requests)
-    print(json.dumps({"device": smi, "ab": rows, "requests": e2e}))
+    steps = None
+    if hasattr(importlib.import_module("parent_rgbdseg_torch.train.trainer"), "train_step"):
+        steps = train_ab(args.seed, rng, args.requests)
+    else:
+        cs.log("ab: the parent has no train step; train section skipped")
+    print(json.dumps({"device": smi, "ab": rows, "requests": e2e, "train_steps": steps}))
     return 0
 
 

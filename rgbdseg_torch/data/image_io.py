@@ -1,5 +1,5 @@
-"""A PNG reader on zlib and struct: the port's stand-in for PIL's
-``Image.open`` and cv2's ``imread``.
+"""A PNG reader and writer on zlib and struct: the port's stand-in for PIL's
+``Image.open``, cv2's ``imread`` and cv2's ``imwrite``.
 
 Scope: 8-bit samples, not interlaced, colour types 0 (gray), 2 (RGB), 4 (gray
 and alpha) and 6 (RGBA), any of the five row filters. Anything else raises:
@@ -11,6 +11,10 @@ and alpha) and 6 (RGBA), any of the five row filters. Anything else raises:
 - `load_unchanged` gives ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: gray as
   (H, W), colour in cv2's order, BGR or BGRA. The annotation masks are read so
   (channel 1 instance ids, channel 2 semantic ids, in that order).
+- `write_png` writes (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an
+  8-bit PNG with the samples in the array's order (the JAX package's
+  ``cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))`` writes the same
+  RGB pixels).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from .device_preprocess import pil_grayscale_u8
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_COLOUR_TYPE = {1: 0, 3: 2, 4: 6}  # samples per pixel -> colour type written
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
@@ -125,3 +130,24 @@ def load_unchanged(path: str) -> np.ndarray:
     if x.shape[-1] == 2:
         x = np.concatenate([np.repeat(x[..., :1], 3, axis=-1), x[..., 1:]], axis=-1)
     return np.ascontiguousarray(np.concatenate([x[..., 2::-1], x[..., 3:]], axis=-1))
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF)
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an 8-bit,
+    non-interlaced PNG (filter 0 on every row, zlib level 6)."""
+    image = np.asarray(image)
+    c = 1 if image.ndim == 2 else (image.shape[-1] if image.ndim == 3 else 0)
+    if image.dtype != np.uint8 or c not in _COLOUR_TYPE or image.shape[0] == 0 or image.shape[1] == 0:
+        raise ValueError(f"write_png takes non-empty (H, W), (H, W, 3) or (H, W, 4) uint8; got "
+                         f"{image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    rows = np.ascontiguousarray(image).reshape(h, w * c)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()  # filter byte 0 per row
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[c], 0, 0, 0)
+    blob = _SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(blob)

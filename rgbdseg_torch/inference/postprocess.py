@@ -12,6 +12,8 @@ Mask2FormerImageProcessor.post_process_instance_segmentation semantics:
 Every step runs on the model's device; only the kept masks, at the target
 size, cross to the host. `eval_stats` (counterpart of `_eval_stats_device`)
 keeps even those there and returns the IoU statistics of the mAP.
+`_resize_nearest_np` is the same nearest resize for masks already on the host
+(overlays at an image's original size, GT export).
 """
 
 from __future__ import annotations
@@ -55,6 +57,13 @@ def _nearest_indices(src_hw, dst_hw) -> tuple[np.ndarray, np.ndarray]:
     yi = np.minimum((np.arange(th) * (h / th)).astype(np.int64), h - 1)
     xi = np.minimum((np.arange(tw) * (w / tw)).astype(np.int64), w - 1)
     return yi, xi
+
+
+def _resize_nearest_np(mask: np.ndarray, size_hw) -> np.ndarray:
+    """The host twin of `_resize_nearest` on (N, H, W) arrays (the JAX package's
+    `_resize_nearest_np`), with the same `_nearest_indices`."""
+    yi, xi = _nearest_indices(mask.shape[-2:], size_hw)
+    return mask[:, yi[:, None], xi[None, :]]
 
 
 def _resize_nearest(masks: torch.Tensor, size_hw) -> torch.Tensor:

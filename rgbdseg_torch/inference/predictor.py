@@ -12,10 +12,15 @@ port's seeded random initialisation (`utils.weights.init_weights`).
   version's channel stack there (`data/device_preprocess.py`), each frame
   resized from its own size to the target by the exact resizer twins.
 - `predict_pixels` takes a channel stack (B, H, W, C) already built.
+- `predict_and_overlay_files` serves PNG files (the RGB frame, and the depth
+  frame for RGB-D versions) through `predict_example` and overlays the
+  instances on the RGB at its own size; `predict_and_overlay` is the RGB-only
+  path (version 0.0.0) from an array. Both write the overlay as PNG if asked.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional
 
 import numpy as np
@@ -24,11 +29,13 @@ import torch
 from ..config import ModelConfig, PreprocessConfig
 from ..data import registry as R
 from ..data.device_preprocess import build_pixels, packed_width
-from ..data.preprocess import output_size
+from ..data.image_io import load_rgb, write_png
+from ..data.preprocess import output_size, process_image
 from ..models.mask2former import Mask2FormerRGBD
 from ..utils.weights import init_weights
 from ..versions import get as get_version
-from .postprocess import post_process_instance_segmentation
+from .postprocess import _resize_nearest_np, post_process_instance_segmentation
+from .visualize import overlay_instances
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,3 +109,31 @@ class Predictor:
         return post_process_instance_segmentation(
             cls_logits, mask_logits, threshold=threshold, target_sizes=target_sizes, return_binary_maps=True
         )
+
+    def predict_and_overlay_files(self, image_paths: list, threshold: float = 0.5, save: Optional[str] = None):
+        """`image_paths` is [rgb] or [rgb, depth, ...] as a meta-JSON "image"
+        entry for this version. Returns (result at the target size, the
+        instances overlaid on the RGB at its original size)."""
+        example = {"image": image_paths if len(image_paths) > 1 else image_paths[0]}
+        res = self.predict_example(example, threshold)
+        return res, _overlay(load_rgb(image_paths[0]), res, save)
+
+    def predict_and_overlay(self, image_rgb: np.ndarray, threshold: float = 0.5, save: Optional[str] = None):
+        """RGB-only path (version 0.0.0): uint8 (H, W, 3) -> (result at the
+        target size, the overlay at (H, W))."""
+        pix = process_image(image_rgb, self.preprocess)
+        res = self.predict_pixels(pix[None].astype(np.float32), threshold)[0]
+        return res, _overlay(image_rgb, res, save)
+
+
+def _overlay(image_rgb: np.ndarray, res: dict, save: Optional[str]) -> np.ndarray:
+    """The result's binary maps, nearest-resized to the image, overlaid on it;
+    written to `save` as PNG if given."""
+    masks = res["segmentation"]
+    if masks.size:
+        masks = _resize_nearest_np(masks, image_rgb.shape[:2])
+    vis = overlay_instances(image_rgb, masks)
+    if save:
+        os.makedirs(os.path.dirname(save) or ".", exist_ok=True)
+        write_png(save, vis)
+    return vis

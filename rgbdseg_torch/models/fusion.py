@@ -24,6 +24,7 @@ from torch import nn
 from ..ops.depth_decomp import dsam_region_masks, dsam_region_masks_pooled
 from ..ops.image import to_grayscale
 from ..ops.resize import adaptive_avg_pool2d, adaptive_max_pool2d, resize_bilinear, resize_nearest
+from .layers import BatchNorm2d, Conv2d, Linear
 from .stochastic import Dropout
 
 
@@ -44,25 +45,25 @@ class EnhancedDepthImageRatioPredictor(nn.Module):
         super().__init__()
         self.out_min, self.out_max = out_min, out_max
         for i, k in enumerate((3, 5, 7)):
-            self.add_module(f"scale{i}_conv", nn.Conv2d(in_channels, 64, k, padding=k // 2))
-        self.scales_bn = nn.BatchNorm2d(192, eps=1e-5)
-        self.fusion_conv = nn.Conv2d(192, 128, 1)
-        self.fusion_bn = nn.BatchNorm2d(128, eps=1e-5)
-        self.attn_conv0 = nn.Conv2d(128, 64, 1)
-        self.attn_conv1 = nn.Conv2d(64, 128, 1)
-        self.extract_conv0 = nn.Conv2d(128, 256, 3, padding=1)
-        self.extract_bn0 = nn.BatchNorm2d(256, eps=1e-5)
-        self.extract_conv1 = nn.Conv2d(256, 512, 3, padding=1)
-        self.extract_bn1 = nn.BatchNorm2d(512, eps=1e-5)
-        self.fc0 = nn.Linear(512, 128)
+            self.add_module(f"scale{i}_conv", Conv2d(in_channels, 64, k, padding=k // 2))
+        self.scales_bn = BatchNorm2d(192, eps=1e-5)
+        self.fusion_conv = Conv2d(192, 128, 1)
+        self.fusion_bn = BatchNorm2d(128, eps=1e-5)
+        self.attn_conv0 = Conv2d(128, 64, 1)
+        self.attn_conv1 = Conv2d(64, 128, 1)
+        self.extract_conv0 = Conv2d(128, 256, 3, padding=1)
+        self.extract_bn0 = BatchNorm2d(256, eps=1e-5)
+        self.extract_conv1 = Conv2d(256, 512, 3, padding=1)
+        self.extract_bn1 = BatchNorm2d(512, eps=1e-5)
+        self.fc0 = Linear(512, 128)
         self.dropout0 = Dropout(0.3)
-        self.fc1 = nn.Linear(128, 64)
+        self.fc1 = Linear(128, 64)
         self.dropout1 = Dropout(0.2)
-        self.fc2 = nn.Linear(64, 32)
-        self.fc3 = nn.Linear(32, 1)
+        self.fc2 = Linear(64, 32)
+        self.fc3 = Linear(32, 1)
 
     def forward(self, depth: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = _nchw(depth)
+        x = _nchw(depth).contiguous()  # NCHW in memory, as Swin's patch embedding (swin.py)
         x = torch.cat([self.scale0_conv(x), self.scale1_conv(x), self.scale2_conv(x)], dim=1)
         x = F.relu(self.scales_bn(x))
         x = F.relu(self.fusion_bn(self.fusion_conv(x)))
@@ -92,12 +93,12 @@ class DSAModule(nn.Module):
         self.strided = in_channels != out_channels
         for i in range(num_regions + 1):
             if self.strided:
-                conv = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+                conv = Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
             else:
-                conv = nn.Conv2d(in_channels, out_channels, 1)
+                conv = Conv2d(in_channels, out_channels, 1)
             self.add_module(f"conv{i}", conv)
         if self.strided:
-            self.rgb_projection = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1, bias=False)
+            self.rgb_projection = Conv2d(in_channels, out_channels, 3, stride=2, padding=1, bias=False)
 
     def forward(self, features, masks, active):
         # features (B, H, W, Cin); masks (B, H, W, T+1) already pooled to H, W; active (B, T+1)
@@ -160,7 +161,7 @@ class DepthGradientInjectionResidual(nn.Module):
     def __init__(self, channels: Sequence[int], grad_channels: int = 3):
         super().__init__()
         for i, c in enumerate(channels):
-            self.add_module(f"enhance{i}", nn.Conv2d(grad_channels, c, 1))
+            self.add_module(f"enhance{i}", Conv2d(grad_channels, c, 1))
 
     def forward(self, color_maps, gradient, mask):
         out = []

@@ -81,8 +81,29 @@ class PixelLevelModule(nn.Module):
         return self.pixel_decoder(fused_maps)
 
 
+def standard_layout(x: torch.Tensor) -> torch.Tensor:
+    """`x` with the strides of a fresh contiguous tensor of its shape (a copy
+    only where they differ). torch calls a tensor contiguous whatever the
+    strides of its size-1 dimensions, but it picks a convolution's memory
+    format from all of them: a batch of one with batch stride 0 (numpy's
+    `a[None]`) ran the first convolution in NCHW, the same values with a full
+    batch stride in NHWC, and cuDNN's kernels for the two sum in different
+    orders. The convolutions that read the stack now take NCHW copies of
+    their channels (`SwinBackbone`, `EnhancedDepthImageRatioPredictor`), the
+    layout numpy's stacks got and the faster one for batch 1 on the H100;
+    this keeps every other op from seeing a caller's strides."""
+    strides, step = [], 1
+    for n in reversed(x.shape):
+        strides.append(step)
+        step *= n
+    if x.stride() == tuple(reversed(strides)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 class Mask2FormerRGBD(nn.Module):
-    """Pixel-level module + transformer module; input (B, H, W, C) channels-last."""
+    """Pixel-level module + transformer module; input (B, H, W, C) channels-last,
+    any strides (`standard_layout`: the logits depend on its values only)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -91,7 +112,7 @@ class Mask2FormerRGBD(nn.Module):
         self.transformer_module = TransformerModule(cfg)
 
     def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None) -> ModelOutputs:
-        mask_features, multi_scale = self.pixel_level_module(pixel_values, generator)
+        mask_features, multi_scale = self.pixel_level_module(standard_layout(pixel_values), generator)
         class_logits, mask_logits = self.transformer_module(multi_scale, mask_features)
         return ModelOutputs(
             class_queries_logits=class_logits[-1],

@@ -17,6 +17,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.kernels.deformable import deform_sample_levels
 from ..ops.resize import resize_bilinear
+from .layers import Conv2d, GroupNorm, LayerNorm, Linear
 from .position import sine_position_embedding
 
 FLAX_EPS = 1e-6
@@ -58,10 +59,10 @@ class DeformableAttention(nn.Module):
         d, nh = cfg.feature_size, cfg.num_attention_heads
         nl, npts = cfg.num_feature_levels, cfg.deformable_points
         self.nh, self.nl, self.npts = nh, nl, npts
-        self.value_proj = nn.Linear(d, d)
-        self.sampling_offsets = nn.Linear(d, nh * nl * npts * 2)
-        self.attention_weights = nn.Linear(d, nh * nl * npts)
-        self.output_proj = nn.Linear(d, d)
+        self.value_proj = Linear(d, d)
+        self.sampling_offsets = Linear(d, nh * nl * npts * 2)
+        self.attention_weights = Linear(d, nh * nl * npts)
+        self.output_proj = Linear(d, d)
 
     def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes):
         nh, npts = self.nh, self.npts
@@ -84,10 +85,10 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d = cfg.feature_size
         self.self_attn = DeformableAttention(cfg)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
-        self.fc1 = nn.Linear(d, cfg.encoder_feedforward_dim)
-        self.fc2 = nn.Linear(cfg.encoder_feedforward_dim, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
+        self.self_attn_layer_norm = LayerNorm(d, eps=FLAX_EPS)
+        self.fc1 = Linear(d, cfg.encoder_feedforward_dim)
+        self.fc2 = Linear(cfg.encoder_feedforward_dim, d)
+        self.final_layer_norm = LayerNorm(d, eps=FLAX_EPS)
 
     def forward(self, x, pos, reference_points, spatial_shapes):
         x = self.self_attn_layer_norm(x + self.self_attn(x, pos, reference_points, spatial_shapes))
@@ -135,18 +136,18 @@ class PixelDecoder(nn.Module):
         d, nl = cfg.feature_size, cfg.num_feature_levels
         self.level_embed = nn.Parameter(torch.zeros(nl, d))
         for i, c in enumerate(in_channels[::-1][:nl]):
-            self.add_module(f"input_proj{i}_conv", nn.Conv2d(c, d, 1))
-            self.add_module(f"input_proj{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
+            self.add_module(f"input_proj{i}_conv", Conv2d(c, d, 1))
+            self.add_module(f"input_proj{i}_norm", GroupNorm(32, d, eps=FLAX_EPS))
         for li in range(cfg.encoder_layers):
             self.add_module(f"layer{li}", EncoderLayer(cfg))
         stride = min(cfg.feature_strides[-nl:])
         self.num_fpn = int(np.log2(stride) - np.log2(cfg.common_stride))
         for i, c in enumerate(list(in_channels[: self.num_fpn])[::-1]):
-            self.add_module(f"adapter{i}_conv", nn.Conv2d(c, d, 1, bias=False))
-            self.add_module(f"adapter{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
-            self.add_module(f"fpn{i}_conv", nn.Conv2d(d, d, 3, padding=1, bias=False))
-            self.add_module(f"fpn{i}_norm", nn.GroupNorm(32, d, eps=FLAX_EPS))
-        self.mask_projection = nn.Conv2d(d, cfg.mask_feature_size, 1)
+            self.add_module(f"adapter{i}_conv", Conv2d(c, d, 1, bias=False))
+            self.add_module(f"adapter{i}_norm", GroupNorm(32, d, eps=FLAX_EPS))
+            self.add_module(f"fpn{i}_conv", Conv2d(d, d, 3, padding=1, bias=False))
+            self.add_module(f"fpn{i}_norm", GroupNorm(32, d, eps=FLAX_EPS))
+        self.mask_projection = Conv2d(d, cfg.mask_feature_size, 1)
 
     def forward(self, features):
         cfg = self.cfg

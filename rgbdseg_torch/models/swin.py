@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from .layers import Conv2d, LayerNorm, Linear, promote
 from .stochastic import drop_path
 
 
@@ -65,10 +66,10 @@ class WindowAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
-        self.query = nn.Linear(dim, dim, bias=qkv_bias)
-        self.key = nn.Linear(dim, dim, bias=qkv_bias)
-        self.value = nn.Linear(dim, dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.query = Linear(dim, dim, bias=qkv_bias)
+        self.key = Linear(dim, dim, bias=qkv_bias)
+        self.value = Linear(dim, dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads)
         )
@@ -86,7 +87,7 @@ class WindowAttention(nn.Module):
         bias = None
         if self.query.bias is not None:
             bias = torch.cat([self.query.bias, self.key.bias, self.value.bias])
-        qkv = F.linear(x, w, bias).reshape(nb, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        qkv = F.linear(*promote(x, w, bias)).reshape(nb, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (nb, nh, n, hd)
         attn = (q * hd**-0.5) @ k.transpose(-1, -2)
         rpb = self.relative_position_bias_table[self.rel_index].reshape(n, n, nh).permute(2, 0, 1)
@@ -107,12 +108,12 @@ class SwinBlock(nn.Module):
         self.shift = shift
         self.drop_path_rate = drop_path_rate
         eps = cfg.layer_norm_eps
-        self.norm1 = nn.LayerNorm(dim, eps=eps)
+        self.norm1 = LayerNorm(dim, eps=eps)
         self.attention = WindowAttention(dim, num_heads, cfg.window_size, cfg.qkv_bias)
-        self.norm2 = nn.LayerNorm(dim, eps=eps)
+        self.norm2 = LayerNorm(dim, eps=eps)
         hidden = int(dim * cfg.mlp_ratio)
-        self.mlp_fc1 = nn.Linear(dim, hidden)
-        self.mlp_fc2 = nn.Linear(hidden, dim)
+        self.mlp_fc1 = Linear(dim, hidden)
+        self.mlp_fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -140,8 +141,8 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     def __init__(self, cfg: SwinConfig, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=cfg.layer_norm_eps)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=cfg.layer_norm_eps)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1:3]
@@ -158,8 +159,8 @@ class SwinBackbone(nn.Module):
         super().__init__()
         self.cfg = cfg
         ps = cfg.patch_size
-        self.patch_embed = nn.Conv2d(in_channels or cfg.num_channels, cfg.embed_dim, ps, stride=ps)
-        self.patch_norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps) if cfg.patch_norm else None
+        self.patch_embed = Conv2d(in_channels or cfg.num_channels, cfg.embed_dim, ps, stride=ps)
+        self.patch_norm = LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps) if cfg.patch_norm else None
         dim = cfg.embed_dim
         rates = iter(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)))
         for stage in range(cfg.num_layers):
@@ -167,7 +168,7 @@ class SwinBackbone(nn.Module):
                 shift = 0 if blk % 2 == 0 else cfg.window_size // 2
                 block = SwinBlock(cfg, dim, cfg.num_heads[stage], shift, float(next(rates)))
                 self.add_module(f"stage{stage}_block{blk}", block)
-            self.add_module(f"out_norm{stage}", nn.LayerNorm(dim, eps=cfg.layer_norm_eps))
+            self.add_module(f"out_norm{stage}", LayerNorm(dim, eps=cfg.layer_norm_eps))
             if stage < cfg.num_layers - 1:
                 self.add_module(f"downsample{stage}", PatchMerging(cfg, dim))
                 dim *= 2
@@ -181,7 +182,9 @@ class SwinBackbone(nn.Module):
         pad_w = (ps - w % ps) % ps
         if pad_h or pad_w:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-        x = self.patch_embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        # NCHW in memory (a copy of 3 channels): the convolution's memory format,
+        # and so cuDNN's kernel and its sums, do not follow the caller's layout
+        x = self.patch_embed(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
         if self.patch_norm is not None:
             x = self.patch_norm(x)
         features = []

@@ -20,6 +20,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.kernels.masked_attention import masked_cross_attention
 from ..ops.resize import resize_bilinear
+from .layers import LayerNorm, Linear
 from .position import sine_position_embedding
 
 FLAX_EPS = 1e-6
@@ -41,10 +42,10 @@ class MultiheadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = Linear(dim, dim)
+        self.k_proj = Linear(dim, dim)
+        self.v_proj = Linear(dim, dim)
+        self.out_proj = Linear(dim, dim)
 
     def forward(self, query, key, value, attn_mask=None):
         nh = self.num_heads
@@ -67,12 +68,12 @@ class DecoderLayer(nn.Module):
         super().__init__()
         d = cfg.hidden_dim
         self.cross_attn = MultiheadAttention(d, cfg.num_attention_heads)
-        self.cross_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
+        self.cross_attn_layer_norm = LayerNorm(d, eps=FLAX_EPS)
         self.self_attn = MultiheadAttention(d, cfg.num_attention_heads)
-        self.self_attn_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
-        self.fc1 = nn.Linear(d, cfg.dim_feedforward)
-        self.fc2 = nn.Linear(cfg.dim_feedforward, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=FLAX_EPS)
+        self.self_attn_layer_norm = LayerNorm(d, eps=FLAX_EPS)
+        self.fc1 = Linear(d, cfg.dim_feedforward)
+        self.fc2 = Linear(cfg.dim_feedforward, d)
+        self.final_layer_norm = LayerNorm(d, eps=FLAX_EPS)
 
     def forward(self, hidden, query_pos, memory, memory_pos, attn_mask):
         y = self.cross_attn(hidden + query_pos, memory + memory_pos, memory, attn_mask)
@@ -90,9 +91,9 @@ class MaskPredictor(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.hidden_dim
-        self.mask_embedder0 = nn.Linear(d, d)
-        self.mask_embedder1 = nn.Linear(d, d)
-        self.mask_embedder2 = nn.Linear(d, cfg.mask_feature_size)
+        self.mask_embedder0 = Linear(d, d)
+        self.mask_embedder1 = Linear(d, d)
+        self.mask_embedder2 = Linear(d, cfg.mask_feature_size)
 
     def forward(self, intermediate, mask_features, target_hw):
         x = F.relu(self.mask_embedder0(intermediate))
@@ -117,9 +118,9 @@ class TransformerModule(nn.Module):
         self.level_embed = nn.Parameter(torch.zeros(nl, d))
         self.queries_embedder = nn.Parameter(torch.zeros(cfg.num_queries, d))
         self.queries_features = nn.Parameter(torch.zeros(cfg.num_queries, d))
-        self.decoder_layernorm = nn.LayerNorm(d, eps=FLAX_EPS)
+        self.decoder_layernorm = LayerNorm(d, eps=FLAX_EPS)
         self.mask_predictor = MaskPredictor(cfg)
-        self.class_predictor = nn.Linear(d, cfg.num_labels + 1)
+        self.class_predictor = Linear(d, cfg.num_labels + 1)
         for idx in range(cfg.decoder_layers - 1):
             self.add_module(f"layer{idx}", DecoderLayer(cfg))
 

@@ -1,7 +1,9 @@
-"""The port stands alone: it imports nothing of JAX or of the JAX package, its
-entry points run on the card unless asked otherwise, the kernel wrappers take
-the plain versions only for CPU tensors without counting a launch, and the JAX
-package's variables load into the port's modules with `strict=True`."""
+"""The port stands alone: it imports nothing of JAX or of the JAX package (nor
+cv2 or PIL, and matplotlib only inside the one function that draws with it),
+its native code is loaded through ctypes only, its entry points run on the
+card unless asked otherwise, the kernel wrappers take the plain versions only
+for CPU tensors without counting a launch, and the JAX package's variables
+load into the port's modules with `strict=True`."""
 
 import ast
 import subprocess
@@ -18,6 +20,7 @@ from rgbdseg_tpu.config import ModelConfig as JConfig
 from rgbdseg_tpu.models.mask2former import Mask2FormerRGBD as JModel
 from rgbdseg_torch import versions as TV
 from rgbdseg_torch.config import ModelConfig
+from rgbdseg_torch.data.pipeline import Batch
 from rgbdseg_torch.inference import predictor as tpredictor
 from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
 from rgbdseg_torch.ops.kernels import LAUNCHES, reset_launches
@@ -28,6 +31,8 @@ from rgbdseg_torch.ops.kernels.deformable import (
     deform_sample_levels_plain,
 )
 from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
+from rgbdseg_torch.train.arguments import TrainingArguments
+from rgbdseg_torch.train.trainer import build_training, put_batch
 from rgbdseg_torch.utils.weights import from_flax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -61,6 +66,34 @@ def test_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpredictor.Predictor(ModelConfig.tiny(version="0.4.0"), device="cuda")
     assert tpredictor.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_training(ModelConfig.tiny(version="0.4.0"), TrainingArguments(), 2)
+    batch = Batch(np.zeros((1, 4, 4, 6), np.uint8), np.zeros((1, 2, 4, 4), np.float32), np.zeros((1, 2), np.int64),
+                  np.ones((1, 2), bool))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        put_batch(batch, TrainingArguments())
+    assert put_batch(batch, TrainingArguments(), "cpu").pixel_values.dtype == torch.uint8
+
+
+def test_native_code_is_loaded_through_ctypes_only():
+    native = REPO / "rgbdseg_torch" / "native"
+    assert sorted(p.name for p in native.iterdir() if p.name != "__pycache__") == ["__init__.py", "rle.c"]
+    roots = _imported_roots(native / "__init__.py")
+    assert "ctypes" in roots and roots <= {"__future__", "ctypes", "hashlib", "os", "shutil", "subprocess",
+                                           "pathlib", "typing", "numpy"}
+    assert not any("native" in str(p) for p in (REPO / "rgbdseg_torch").rglob("*.so"))  # built under build/
+
+
+def test_visualize_imports_matplotlib_only_when_called():
+    tree = ast.parse((REPO / "rgbdseg_torch" / "inference" / "visualize.py").read_text())
+    top = {a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module for node in tree.body if isinstance(node, ast.ImportFrom) and node.module}
+    assert not any(m.startswith("matplotlib") for m in top)
+    assert "matplotlib" in _imported_roots(REPO / "rgbdseg_torch" / "inference" / "visualize.py")
 
 
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):

@@ -439,3 +439,28 @@ def test_cuda_channel_builder_equals_cpu_bitwise():
     ]
     for stage in stages:
         assert torch.equal(stage(*gpu).cpu(), stage(*cpu))
+
+
+@pytest.mark.cuda
+def test_cuda_forward_depends_on_input_values_only():
+    """One 480x640 stack forwarded on the card from two layouts, numpy's `a[None]`
+    (batch stride 0) and a full batch stride, gives the same logits bit for bit
+    (`models/mask2former.py::standard_layout`: cuDNN picks NCHW or NHWC kernels
+    from the strides of the first convolution's input)."""
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+    from rgbdseg_torch.utils.weights import init_weights
+
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_weights(Mask2FormerRGBD(ModelConfig(num_labels=40, version="0.4.0")), 0).cuda().eval()
+    rng = np.random.RandomState(0)
+    x = rng.randn(480, 640, 10).astype(np.float32)
+    x[..., 9] = rng.rand(480, 640) > 0.3
+    a = torch.from_numpy(x[None]).cuda()
+    b = a.clone(memory_format=torch.contiguous_format)
+    assert a.stride()[0] == 0 and b.stride()[0] != 0
+    with torch.no_grad():
+        oa, ob = model(a), model(b)
+    assert torch.equal(oa.class_queries_logits, ob.class_queries_logits)
+    assert torch.equal(oa.masks_queries_logits, ob.masks_queries_logits)
