@@ -83,7 +83,26 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
   13. bf16 step: from phase 12's weights and batch, one bf16 and one float32
      step: the kernels launched with bfloat16 operands in the bf16 step only,
      the gap in loss and gradient norm within a bound; 3 steady bf16 steps;
-  14. a `kernels` JSON line; the last line is the device JSON.
+  15. finetune: `finetune_torch.main` on a synthetic set written by the port's
+     `data/synthetic.generate` (8 train and 4 valid 480x640 frames, 1-3
+     objects each, 3 labels): the full-width 0.4.0 model, 2 epochs at batch 2,
+     a checkpoint per epoch with save_total_limit 1, eval per epoch, the HF
+     export and every prediction export. Every artifact must be there
+     (checkpoint-8 alone, trainer_state.json with 2 loss and 2 eval_map
+     entries, train/test/all_results.json, config.json and model.safetensors,
+     pred.json, gt.json and the comparison PNGs), each micro-step must launch
+     6 K1 and 9 K3 forward and backward; epoch seconds and images/s, and the
+     epoch extrapolated to NYUv2's 398 steps. Then resume: a second run
+     interrupted right after its epoch-1 checkpoint, a fresh `Trainer` that
+     loads it (parameters, BatchNorm statistics, the optimizer's moments and
+     count, the CUDA generator's state: all equal to the saved ones bit for
+     bit) and trains epoch 2, whose mean loss must lie within RESUME_LOSS_RTOL
+     of the uninterrupted run's;
+  16. predict entry: `predict_torch.main` on one raw 480x640 PNG pair of that
+     set, from `--checkpoint checkpoint-8` and from `--hf_checkpoint` of the
+     run's export: the logits equal bit for bit, 6 K1 and 9 K3 launches each,
+     the overlay PNG written;
+  17. a `kernels` JSON line; the last line is the device JSON.
 With --profile, phases 4, 6 and 13 also profile one request, one train step
 and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
 busy share and the kernels that take the most device time.
@@ -155,6 +174,18 @@ STEP0_OWN_RTOL = (1e-4, 1e-3, 1e-2)
 # square root, one subtraction and one division), each correctly rounded on both.
 BUILD_TOL = 1e-6
 SERVE_LAUNCHES = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 0, "masked_attention_bwd": 0}
+TRAIN_LAUNCHES = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9}
+FT_TRAIN, FT_VALID, FT_EPOCHS, FT_B = 8, 4, 2, 2  # the finetune phase's set, epochs and batch
+NYU_STEPS = 398  # an NYUv2 epoch: 795 training frames at batch 2
+# The resumed run's epoch-2 mean loss against the uninterrupted run's, relative
+# (phase 15), set before the first run on the card. The two runs start from the
+# same weights, batches and generator states, so they differ only where the
+# card sums in a varying order (K1's backward adds d value with atomics): step
+# 0's loss differs from the CPU's by 2.4e-7 (phase 7), a run from itself by
+# less. Adam divides each moment by sqrt(nu), so the first steps can amplify a
+# relative difference of small gradients; allowing ~4x per optimizer step over
+# the 4 steps of epoch 1 and the 4 averaged in epoch 2 (2.4e-7 x 4^6) gives 1e-3.
+RESUME_LOSS_RTOL = 1e-3
 EVAL_N, EVAL_B = 8, 2  # eval examples and batch
 LEVELS = ((15, 20), (30, 40), (60, 80))  # deformable levels at 480x640
 KEYS = (300, 1200, 4800)  # masked cross-attention keys at 480x640
@@ -1502,10 +1533,10 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     def counting(module):  # the launches by the operand dtype the wrapper passed (the last int flag)
         original = module.launch
 
-        def launch(name, *a):
+        def launch(name, *a, **kw):
             by_dtype[(name, "bfloat16" if a[-1] else "float32")] = by_dtype.get(
                 (name, "bfloat16" if a[-1] else "float32"), 0) + 1
-            return original(name, *a)
+            return original(name, *a, **kw)
 
         return original, launch
 
@@ -1544,6 +1575,238 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     log(f"bf16 step: steady steps of one micro-batch (batch {TRAIN_B}, packed and compacted): bf16 "
         f"{[round(x, 2) for x in times[True]]} ms, float32 {[round(x, 2) for x in times[False]]} ms; steady float32 "
         f"optimizer steps of 2 micro-batches (phase 12) {[round(x, 2) for x in steady_f32]} ms")
+
+
+def run_finetune(seed: int, out_dir: Path):
+    """Phase 15: `finetune_torch.main` end to end on a synthetic set at full
+    width, its artifacts, its launches per micro-step and its epoch times; then
+    an interrupted run resumed by a fresh `Trainer`. Returns the run's output
+    directory and the set's root."""
+    import shutil
+
+    import torch
+
+    import finetune_torch
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.data import synthetic
+    from rgbdseg_torch.data.pipeline import SegmentationDataset, build_datasets
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.train import trainer as T
+    from rgbdseg_torch.train.arguments import parse_args
+    from rgbdseg_torch.train.checkpoints import find_last_checkpoint
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    fx, t_gen = _timed(lambda: synthetic.generate(str(out_dir / "set"), num_train=FT_TRAIN, num_valid=FT_VALID,
+                                                  size=(480, 640), seed=seed))
+    run = out_dir / "run"
+    config = {
+        "root_path": fx["root"], "train_json_path": "train.json", "valid_json_path": "valid.json",
+        "label2id_path": "label2id.json", "image_height": 480, "image_width": 640, "version": "0.4.0",
+        "output_dir": str(run), "num_train_epochs": FT_EPOCHS, "per_device_train_batch_size": FT_B,
+        "per_device_eval_batch_size": FT_B, "gradient_accumulation_steps": 1, "learning_rate": 1e-4,
+        "seed": seed, "save_strategy": "epoch", "save_total_limit": 1, "do_eval": True,
+        "prediction_json_path": str(run / "pred.json"), "gt_json_path": str(run / "gt.json"),
+        "comparison_output_dir": str(run / "comparison"),
+    }
+    config_path = out_dir / "finetune.json"
+    config_path.write_text(json.dumps(config))
+
+    # Per micro-step: its launches and loss; per epoch: the train loop's seconds
+    # (from asking for the first batch to the last step's end).
+    micro, epoch_s = [], []
+    orig_micro, orig_batches = T.micro_step, SegmentationDataset.batches
+
+    def counted_micro(*a, **k):
+        before = dict(K.LAUNCHES)
+        out = orig_micro(*a, **k)
+        micro.append(({n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}, out[0]))
+        return out
+
+    def timed_batches(self, *a, **k):
+        t = time.perf_counter()
+        yield from orig_batches(self, *a, **k)
+        if k.get("shuffle"):
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t)
+
+    T.micro_step, SegmentationDataset.batches = counted_micro, timed_batches
+    try:
+        K.reset_launches()
+        trainer, t_main = _timed(lambda: finetune_torch.main([str(config_path)]))
+        launches = dict(K.LAUNCHES)
+        main_micro, main_epochs = list(micro), list(epoch_s)
+
+        names = sorted(os.listdir(run))
+        ckpts = [n for n in names if n.startswith("checkpoint-")]
+        steps = FT_EPOCHS * FT_TRAIN // FT_B
+        if ckpts != [f"checkpoint-{steps}"]:
+            raise AssertionError(f"checkpoints {ckpts}; expected checkpoint-{steps} alone (save_total_limit 1)")
+        want = ["README.md", "all_results.json", "config.json", "gt.json", "model.safetensors", "pred.json",
+                "test_results.json", "train_results.json", "trainer_state.json"]
+        if missing := [n for n in want if n not in names]:
+            raise AssertionError(f"finetune artifacts missing: {missing} (have {names})")
+        history = json.loads((run / "trainer_state.json").read_text())["log_history"]
+        n_loss, n_map = sum("loss" in e for e in history), sum("eval_map" in e for e in history)
+        pngs = sorted(os.listdir(run / "comparison"))
+        if (n_loss, n_map) != (FT_EPOCHS, FT_EPOCHS) or len(pngs) != FT_VALID:
+            raise AssertionError(f"trainer_state.json: {n_loss} loss and {n_map} eval_map entries; "
+                                 f"{len(pngs)} comparison PNGs")
+        if len(main_micro) != steps or any(d != TRAIN_LAUNCHES for d, _ in main_micro):
+            raise AssertionError(f"micro-step launches {[d for d, _ in main_micro]}; expected {steps} x {TRAIN_LAUNCHES}")
+        losses = [float(x) for _, x in main_micro]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"finetune losses {losses}")
+        results = json.loads((run / "all_results.json").read_text())
+        log(f"finetune: set of {FT_TRAIN} + {FT_VALID} 480x640 frames written in {t_gen / 1e3:.1f} s; "
+            f"finetune_torch.main {t_main / 1e3:.1f} s; artifacts {names}, {len(pngs)} comparison PNGs; "
+            f"log_history {n_loss} loss and {n_map} eval_map entries; every one of {steps} micro-steps launched "
+            f"{TRAIN_LAUNCHES}; all launches {launches}")
+        log(f"finetune: epoch losses {[e['loss'] for e in history if 'loss' in e]}, eval_map "
+            f"{[round(e['eval_map'], 4) for e in history if 'eval_map' in e]}, test_map {results['test_map']:.4f}, "
+            f"train_runtime {results['train_runtime']} s, total_flos {results['total_flos']:.4e}")
+        per_step = [t / (FT_TRAIN // FT_B) for t in main_epochs]
+        log(f"finetune epochs: {[round(t, 3) for t in main_epochs]} s for {FT_TRAIN // FT_B} steps of batch {FT_B} "
+            f"({[round(FT_TRAIN / t, 3) for t in main_epochs]} images/s); an NYUv2 epoch of {NYU_STEPS} steps at "
+            f"the last epoch's rate: {per_step[-1] * NYU_STEPS:.1f} s = {per_step[-1] * NYU_STEPS / 3600:.4f} "
+            f"GPU hours")
+
+        log_loading_rates(fx)
+
+        # Resume: the same arguments into another directory, without eval (it
+        # draws from its own generator and leaves the training state as it was).
+        args, targs = parse_args([str(config_path)])
+        targs.output_dir, targs.do_eval = str(out_dir / "resume"), False
+        train_ds, valid_ds, label2id, id2label = build_datasets(args)
+        cfg = ModelConfig(num_labels=len(label2id), version=args.version)
+        saved = {}
+        first = T.Trainer(cfg, targs, train_ds, valid_ds, id2label)
+        save = first._save
+
+        def interrupting_save(output_dir):
+            path = save(output_dir)
+            saved.update(path=path, step=first.global_step, rng=first.generator.get_state(),
+                         model={k: v.detach().clone() for k, v in first.model.state_dict().items()},
+                         optimizer=first.optimizer.state_dict())
+            raise KeyboardInterrupt  # a run stopped right after its epoch-1 checkpoint
+
+        first._save = interrupting_save
+        micro.clear()
+        try:
+            first.train()
+        except KeyboardInterrupt:
+            pass
+        del first
+        last = find_last_checkpoint(targs.output_dir)
+        if last != saved["path"] or saved["step"] != steps // FT_EPOCHS:
+            raise AssertionError(f"interrupted run: last checkpoint {last}, saved {saved['path']} at {saved['step']}")
+        resumed = T.Trainer(cfg, targs, train_ds, valid_ds, id2label)
+        resumed._restore(last)
+        got = resumed.optimizer.state_dict()
+        same = {
+            "parameters and BatchNorm statistics": all(
+                torch.equal(v, saved["model"][k]) for k, v in resumed.model.state_dict().items()),
+            "moments": got["state"].keys() == saved["optimizer"]["state"].keys() and all(
+                torch.equal(m, saved["optimizer"]["state"][n][k]) for n, st in got["state"].items()
+                for k, m in st.items()),
+            "count": got["count"] == saved["optimizer"]["count"] == saved["step"],
+            "CUDA generator state": torch.equal(resumed.generator.get_state(), saved["rng"]),
+            "step": resumed.global_step == saved["step"],
+        }
+        if not all(same.values()):
+            raise AssertionError(f"reloaded state differs from the saved one: {same}")
+        micro.clear()
+        resumed.train(resume_from_checkpoint=last)
+        if resumed.global_step != steps or len(micro) != steps // FT_EPOCHS:
+            raise AssertionError(f"resumed run ended at step {resumed.global_step} after {len(micro)} micro-steps")
+        straight = float(np.mean(losses[steps // FT_EPOCHS:]))
+        again = float(np.mean([float(x) for _, x in micro]))
+        rel = abs(again - straight) / abs(straight)
+        log(f"finetune resume: checkpoint-{saved['step']} reloaded by a fresh Trainer equal bit for bit "
+            f"({', '.join(same)}); epoch-2 mean loss resumed {again:.7f} vs uninterrupted {straight:.7f}, "
+            f"relative {rel:.3e} (tol {RESUME_LOSS_RTOL:g})")
+        if not rel <= RESUME_LOSS_RTOL:
+            raise AssertionError(f"resumed epoch-2 loss differs by {rel}")
+        del resumed, trainer
+    finally:
+        T.micro_step, SegmentationDataset.batches = orig_micro, orig_batches
+    return run, Path(fx["root"])
+
+
+def log_loading_rates(fx: dict) -> None:
+    """The train set's loading time per image on this host, uncached, with 4
+    worker threads: raw frames (device_channels) and float stacks built on the
+    host, each with torch's default intra-op pool and with one thread per
+    worker (workers x threads within the cores)."""
+    import torch
+
+    from rgbdseg_torch.config import PreprocessConfig
+    from rgbdseg_torch.data.pipeline import SegmentationDataset, load_meta
+
+    default_threads, rates = torch.get_num_threads(), []
+    try:
+        for threads in (default_threads, 1):
+            torch.set_num_threads(threads)
+            for raw in (True, False):
+                ds = SegmentationDataset(load_meta(fx["train"], fx["root"]), "0.4.0",
+                                         PreprocessConfig(height=480, width=640), device_channels=raw, cache=False)
+                t = time.perf_counter()
+                for _ in ds.batches(FT_B, num_workers=4):
+                    pass
+                rates.append(f"{'raw frames' if raw else 'host stacks'} with {threads} intra-op threads "
+                             f"{(time.perf_counter() - t) * 1e3 / len(ds):.1f}")
+    finally:
+        torch.set_num_threads(default_threads)
+    log(f"finetune data loading ms per 480x640 image, uncached, 4 workers, {os.cpu_count()} cores: "
+        + "; ".join(rates))
+
+
+def run_predict_entry(run: Path, set_root: Path) -> None:
+    """Phase 16: `predict_torch.main` on a raw 480x640 PNG pair, from the training
+    checkpoint and from the HF export of phase 15: logits equal bit for bit,
+    6 K1 and 9 K3 launches each, the overlay written."""
+    import torch
+
+    import predict_torch
+    from rgbdseg_torch.data.image_io import read_png
+    from rgbdseg_torch.inference.predictor import Predictor
+    from rgbdseg_torch.ops import kernels as K
+
+    logits = []
+    forward = Predictor._forward
+
+    def keep(self, x):
+        out = forward(self, x)
+        logits.append(tuple(t.detach().clone() for t in out))
+        return out
+
+    image, depth = str(set_root / "images" / f"{FT_TRAIN}.png"), str(set_root / "depth" / f"{FT_TRAIN}.png")
+    common = ["--version", "0.4.0", "--num_labels", "3", "--image", image, "--depth", depth,
+              "--image_height", "480", "--image_width", "640"]
+    steps = FT_EPOCHS * FT_TRAIN // FT_B
+    results = []
+    Predictor._forward = keep
+    try:
+        for name, source in (("checkpoint", ["--checkpoint", str(run / f"checkpoint-{steps}")]),
+                             ("hf_checkpoint", ["--hf_checkpoint", str(run)])):
+            overlay = str(run / f"overlay_{name}.png")
+            K.reset_launches()
+            res, ms = _timed(lambda: predict_torch.main(source + common + ["--save", overlay]))
+            _launch_check(f"predict_torch --{name}", SERVE_LAUNCHES)
+            if read_png(overlay).shape != (480, 640, 3):
+                raise AssertionError(f"predict_torch --{name}: overlay {read_png(overlay).shape}")
+            results.append(res)
+            log(f"predict entry --{name}: {ms:.1f} ms (weights loaded, one frame served, overlay written), "
+                f"{len(res['segments_info'])} segments at threshold 0.5, launches {dict(K.LAUNCHES)}")
+    finally:
+        Predictor._forward = forward
+    (c0, m0), (c1, m1) = logits
+    if not (torch.equal(c0, c1) and torch.equal(m0, m1)):
+        raise AssertionError(f"logits from the checkpoint and from the HF export differ: class "
+                             f"{(c0 - c1).abs().max().item():.3e}, mask {(m0 - m1).abs().max().item():.3e}")
+    if results[0]["segments_info"] != results[1]["segments_info"]:
+        raise AssertionError("segments from the checkpoint and from the HF export differ")
+    log(f"predict entry: class {tuple(c0.shape)} and mask {tuple(m0.shape)} logits from the training checkpoint "
+        f"and from the HF export equal bit for bit")
 
 
 def main(argv=None) -> int:
@@ -1597,6 +1860,10 @@ def main(argv=None) -> int:
     log(f"train full: phase took {t_full / 1e3:.1f} s")
     _, t_bf16 = _timed(lambda: run_bf16_step(args.seed, step0, micro, steady, profile=args.profile))
     log(f"bf16 step: phase took {t_bf16 / 1e3:.1f} s")
+    (run, set_root), t_ft = _timed(lambda: run_finetune(args.seed, repo / "build" / "chip_smoke" / "finetune"))
+    log(f"finetune: phase took {t_ft / 1e3:.1f} s")
+    _, t_entry = _timed(lambda: run_predict_entry(run, set_root))
+    log(f"predict entry: phase took {t_entry / 1e3:.1f} s")
     launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
 
     meta = {

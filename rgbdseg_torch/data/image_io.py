@@ -11,6 +11,8 @@ and alpha) and 6 (RGBA), any of the five row filters. Anything else raises:
 - `load_unchanged` gives ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: gray as
   (H, W), colour in cv2's order, BGR or BGRA. The annotation masks are read so
   (channel 1 instance ids, channel 2 semantic ids, in that order).
+- `png_size` reads (height, width) from the IHDR chunk alone, as PIL's
+  ``Image.open(path).size`` does without decoding the pixels.
 - `write_png` writes (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an
   8-bit PNG with the samples in the array's order (the JAX package's
   ``cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))`` writes the same
@@ -99,6 +101,17 @@ def read_png(path: str) -> np.ndarray:
     c = _CHANNELS[ctype]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, c).reshape(h, w, c)
     return pixels[..., 0] if c == 1 else pixels
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG file from its IHDR chunk, the first one after the
+    signature; no pixel data is read."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file with an IHDR chunk first")
+    w, h = struct.unpack(">II", head[16:24])
+    return int(h), int(w)
 
 
 def load_rgb(path: str) -> np.ndarray:

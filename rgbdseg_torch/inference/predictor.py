@@ -38,6 +38,22 @@ from .postprocess import _resize_nearest_np, post_process_instance_segmentation
 from .visualize import overlay_instances
 
 
+def pop_device_flag(argv: list[str]) -> tuple[list[str], Optional[str]]:
+    """(argv without a `--device NAME` or `--device=NAME` flag, NAME or None):
+    the entry scripts take the flag beside the JAX package's argument schema."""
+    rest, device, it = [], None, iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it, None)
+            if device is None:
+                raise ValueError("--device needs a value, e.g. --device cpu")
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, device
+
+
 def resolve_device(device=None) -> torch.device:
     """`device` as given, else the CUDA device; raises when CUDA is asked for and absent."""
     dev = torch.device(device if device is not None else "cuda")

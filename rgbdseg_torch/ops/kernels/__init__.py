@@ -14,7 +14,10 @@ note. A wrapper takes the plain versions only for CPU tensors; for CUDA tensors
 it launches the kernel or raises. `LAUNCHES` counts kernel launches per entry
 point, the backward ones (`*_bwd`) apart from the forward ones: a plain integer
 each, bumped only where the kernel is launched (once per call, also where one
-call is two launches, as K3's split and combine are).
+call is two launches, as K3's split and combine are). `FLOPS` sums, per
+entry point, the floating-point operations of the launches' dense formulas
+(every sample and every key counted), for `total_flos`, which torch's
+FlopCounterMode cannot see in a ctypes launch.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ _SIGNATURES = {
 }
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+FLOPS = {name: 0 for name in _SIGNATURES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -132,14 +136,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point on the current stream; raise on a launch error."""
+def launch(name: str, *args, flops: int = 0) -> None:
+    """Call kernel `name`'s C entry point on the current stream; raise on a launch
+    error. `flops`: the launch's operations by the kernel's dense formula."""
     lib = load(name)
     fn_name, _ = _SIGNATURES[name]
     err = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    FLOPS[name] += flops
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtypes) -> None:

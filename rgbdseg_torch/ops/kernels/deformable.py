@@ -201,6 +201,7 @@ def _launch(value, locations, weights, spatial_shapes, starts, normalized: bool)
         value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
         _level_table(spatial_shapes, starts),
         b, l, nh, nl, npts, hd, ltot, int(normalized), int(value.dtype == torch.bfloat16),
+        flops=8 * b * l * nh * nl * npts * hd,  # 4 corners, a multiply and an add per channel
     )
     return out
 
@@ -219,6 +220,7 @@ def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: b
         value.data_ptr(), locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
         d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(), _level_table(spatial_shapes, starts),
         b, l, nh, nl, npts, hd, ltot, int(normalized), int(value.dtype == torch.bfloat16),
+        flops=16 * b * l * nh * nl * npts * hd,  # per corner: the product with grad_out, the d value update
     )
     return d_value, d_loc, d_w
 

@@ -100,6 +100,7 @@ def _launch(q, k, v, mask_logits, all_blocked):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(),
         all_blocked.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + parts * hd * 4,
         lse.data_ptr(), b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
+        flops=4 * b * nh * nq * nk * hd,  # q k^T and p v over every key
     )
     return out, lse
 
@@ -124,6 +125,7 @@ def _launch_bwd(q, k, v, mask_logits, all_blocked, out, lse, grad_out):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_logits.data_ptr(), all_blocked.data_ptr(),
         out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dq_part.data_ptr(), b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
+        flops=10 * b * nh * nq * nk * hd,  # q k^T again, d v, d p, d q and d k over every key
     )
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

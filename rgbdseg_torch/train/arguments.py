@@ -4,10 +4,11 @@
 `prog config.json` or `prog --flag value ...`: a data/model `Arguments` block
 and a `TrainingArguments` block, from one JSON file or command-line flags.
 
-Some fields ask for what the port does not have yet. They exist, with the
-JAX package's defaults; `check_supported` raises NotImplementedError, naming
-the ROADMAP.md item that ports it, for any of them set to another value, and
-the port's training entry points call it.
+Two fields ask for what the port does not have yet, parallelism over several
+devices (`num_devices`, `model_parallel_size`). They exist, with the JAX
+package's defaults; `check_supported` raises NotImplementedError, naming the
+ROADMAP.md item that ports it, for either set to another value, and the port's
+training entry points call it.
 """
 
 from __future__ import annotations
@@ -94,11 +95,6 @@ class TrainingArguments:
 UNPORTED = {
     "num_devices": "§1 item 5 (parallelism)",
     "model_parallel_size": "§1 item 5 (parallelism)",
-    "resume_from_checkpoint": "§1 item 3 (checkpoints)",
-    "profile_start_step": "§1 item 3 (the trainer loop's profiling)",
-    "profile_stop_step": "§1 item 3 (the trainer loop's profiling)",
-    "push_to_hub": "§1 item 3 (train/hub.py)",
-    "hub_model_id": "§1 item 3 (train/hub.py)",
 }
 
 

@@ -22,6 +22,10 @@ Each operation runs over all parameters at once (torch's multi-tensor
 loop of single-tensor ops over the 656 parameter tensors of the full-width
 model made some 7,000 launches per step and held the step on the host. Clipping needs no host sync: the gradients are divided by
 where(norm < max, 1, norm) and multiplied by where(norm < max, 1, max).
+
+`state_dict` / `load_state_dict` carry optax's step count and the moments
+keyed by parameter name (torch's own key them by position across the decay
+groups), for the checkpoints of `train/checkpoints.py`.
 """
 
 from __future__ import annotations
@@ -83,8 +87,35 @@ class AdamW(torch.optim.Optimizer):
         ]
         super().__init__([g for g in groups if g["params"]], {"weight_decay": 0.0})
         self.args = args
+        self.names = {p: n for n, p in named}
+        self.total_steps = total_steps
         self.schedule = linear_schedule(args.learning_rate, total_steps, args.warmup_ratio)
-        self.count = 0  # optimizer steps taken
+        self.count = 0  # optimizer steps taken (optax's count)
+
+    def state_dict(self) -> dict:
+        """{"count": steps taken, "state": {parameter name: {"mu", "nu"}}} on the
+        CPU: the moments keyed by the parameter they belong to, not by position."""
+        return {"count": self.count,
+                "state": {self.names[p]: {k: v.detach().cpu().clone() for k, v in st.items()}
+                          for p, st in self.state.items() if st}}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore `state_dict()`'s count and moments onto the parameters of the
+        same names, on their devices; every parameter's moments, or none, must be
+        there."""
+        saved = state_dict["state"]
+        params = [p for g in self.param_groups for p in g["params"]]
+        names = {self.names[p] for p in params}
+        if saved and set(saved) != names:
+            raise ValueError(f"optimizer state for {len(saved)} parameters does not match the model's "
+                             f"{len(names)}: missing {sorted(names - set(saved))[:5]}, "
+                             f"unknown {sorted(set(saved) - names)[:5]}")
+        self.state.clear()
+        for p in params:
+            st = saved.get(self.names[p])
+            if st is not None:
+                self.state[p].update({k: v.to(device=p.device, dtype=p.dtype).clone() for k, v in st.items()})
+        self.count = int(state_dict["count"])
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:

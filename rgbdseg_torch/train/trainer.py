@@ -33,13 +33,25 @@ Trainer does at init: float32 / bfloat16_3x / bfloat16 select torch's
 switch set to match. K3 and its backward compute 3xTF32 products whatever the
 setting (`csrc/mma_tf32.cuh`).
 
-Not ported yet (ROADMAP.md §1 item 3): the dataset, the epoch loop,
-checkpoints and the finetune CLI.
+`Trainer` (counterpart of `rgbdseg_tpu/train/trainer.py::Trainer`) composes
+these into the epoch loop over a `data.pipeline.SegmentationDataset`:
+the warmup-and-decay schedule over all epochs' optimizer steps, gradient
+accumulation with the epoch's remainder applied on its own count, one
+`log_history` entry per epoch, eval and checkpoints per epoch, an exact
+resume (the model, the optimizer's moments and count, and the generator's
+state are checkpointed, `train/checkpoints.py`), `torch.profiler` traces of
+chosen steps, and HF-Trainer-compatible `trainer_state.json` and
+`*_results.json`. `total_flos` counts each target bucket's first micro-step
+under torch's `FlopCounterMode` and adds the hand kernels' operations by their
+own formulas (`ops.kernels.FLOPS`), which the mode cannot see; it is not
+XLA's cost analysis, which the JAX package reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
 import os
 import time
@@ -53,12 +65,17 @@ from ..data.device_preprocess import build_from_packed, unpack_masks
 from ..data.pipeline import Batch, compact_targets
 from ..inference.predictor import resolve_device
 from ..models.mask2former import Mask2FormerRGBD, ModelOutputs
+from ..ops import kernels
 from ..ops.losses import mask2former_loss
+from ..utils.hf_convert import graft
 from ..utils.weights import init_weights
 from ..versions import get as get_version
 from .arguments import TrainingArguments, check_supported
+from .checkpoints import load_checkpoint, save_checkpoint
 from .evaluator import Evaluator
 from .optim import AdamW
+
+logger = logging.getLogger(__name__)
 
 # TrainingArguments.matmul_precision -> torch's float32 matmul precision
 MATMUL_PRECISION = {"float32": "highest", "bfloat16_3x": "high", "bfloat16": "medium"}
@@ -204,6 +221,12 @@ def _eval_outputs(model, batches: Iterable[Batch], preprocess, generator, bf16):
         model.train(was_training)
 
 
+def _rows(batch: Batch, n: int) -> Batch:
+    """The first n rows of a batch."""
+    return dataclasses.replace(batch, **{f.name: None if getattr(batch, f.name) is None else getattr(batch, f.name)[:n]
+                                         for f in dataclasses.fields(batch)})
+
+
 @torch.no_grad()
 def evaluate(
     model,
@@ -213,6 +236,7 @@ def evaluate(
     prefix: str = "eval_",
     generator: Optional[torch.Generator] = None,
     bf16: bool = False,
+    num_examples: Optional[int] = None,
 ) -> dict:
     """Eval loss and mask mAP of `model` over `batches`, on the model's device.
 
@@ -221,17 +245,23 @@ def evaluate(
     (`device_preprocess.build_from_packed` with `preprocess`); the masks plain,
     or bit-packed in `mask_labels_packed` and unpacked there. The model runs in
     eval mode (with `bf16`, under the bf16 policy of `forward`); the loss is
-    `mask2former_loss` with its points from `generator` (default: seeded 0 on
-    the model's device); the logits stay on the device for `Evaluator.update`.
+    `mask2former_loss` over the whole batch with its points from `generator`
+    (default: seeded 0 on the model's device); the logits stay on the device
+    for `Evaluator.update`, which sees only the rows before `num_examples` (a
+    last chunk padded by repetition is cut, as the JAX Trainer cuts it).
     Returns {prefix}loss (the mean over batches), the mAP keys,
     {prefix}runtime (s) and {prefix}samples_per_second."""
     evaluator = Evaluator(id2label, threshold=0.0)
-    losses, n = [], 0
+    losses, n, seen = [], 0, 0
     t0 = time.perf_counter()
     for batch, out, loss in _eval_outputs(model, batches, preprocess, generator, bf16):
         losses.append(loss)
-        evaluator.update(out.class_queries_logits, out.masks_queries_logits, batch)
-        n += out.class_queries_logits.shape[0]
+        b = out.class_queries_logits.shape[0]
+        real = b if num_examples is None else max(0, min(b, num_examples - seen))
+        seen += b
+        if real:
+            evaluator.update(out.class_queries_logits[:real], out.masks_queries_logits[:real], _rows(batch, real))
+        n += real
     evaluator.flush()
     losses = torch.stack(losses).cpu().tolist()
     runtime = time.perf_counter() - t0
@@ -251,17 +281,20 @@ def predict(
     prefix: str = "test_",
     num_examples: Optional[int] = None,
     bf16: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> tuple[list, dict]:
     """(the host logits (class (b, Q, L+1), mask (b, Q, h, w)) of each batch
-    cut to its real rows, `evaluate`'s metrics over the same batches). The last
-    batch's rows past `num_examples` (a chunk padded by repetition) are cut."""
+    cut to its real rows, `evaluate`'s metrics over the same batches and real
+    rows, its loss points from `generator`). The last batch's rows past
+    `num_examples` (a chunk padded by repetition) are cut."""
     outputs, seen = [], 0
     for batch, out, _ in _eval_outputs(model, batches, preprocess, None, bf16):
         b = out.class_queries_logits.shape[0]
         real = b if num_examples is None else max(0, min(b, num_examples - seen))
         outputs.append((out.class_queries_logits[:real].cpu().numpy(), out.masks_queries_logits[:real].cpu().numpy()))
         seen += b
-    return outputs, evaluate(model, batches, id2label, preprocess, prefix=prefix, bf16=bf16)
+    return outputs, evaluate(model, batches, id2label, preprocess, prefix=prefix, generator=generator, bf16=bf16,
+                             num_examples=num_examples)
 
 
 def save_metrics(output_dir: str, split: str, metrics: dict) -> None:
@@ -277,3 +310,218 @@ def save_metrics(output_dir: str, split: str, metrics: dict) -> None:
     allm.update(metrics)
     with open(all_path, "w") as f:
         json.dump(allm, f, indent=2, sort_keys=True)
+
+
+class Trainer:
+    """The epoch loop of `rgbdseg_tpu/train/trainer.py::Trainer` on the port's
+    step: `Trainer(cfg, args, train_dataset, eval_dataset, id2label,
+    state_dict=None, device=None)`. The model gets the port's seeded weights
+    (seed `args.seed`), then `state_dict`'s tensors of matching shape (`graft`;
+    the skipped ones are logged), on the CUDA device unless `device` names
+    another (raises without CUDA)."""
+
+    def __init__(self, cfg: ModelConfig, args: TrainingArguments, train_dataset=None, eval_dataset=None,
+                 id2label: Optional[dict] = None, state_dict: Optional[dict] = None, device=None):
+        check_supported(args)
+        self.cfg, self.args = cfg, args
+        self.train_dataset, self.eval_dataset = train_dataset, eval_dataset
+        self.id2label = id2label or {}
+        self.device = resolve_device(device)
+        set_matmul_precision(args.matmul_precision)
+        model = init_weights(Mask2FormerRGBD(cfg), args.seed)
+        if state_dict is not None:
+            skipped = graft(model, state_dict)
+            for s in skipped:
+                logger.warning("pretrained weight skipped: %s", s)
+            logger.info("loaded pretrained weights (%d tensors skipped)", len(skipped))
+        self.model = model.to(self.device).train()
+        n = len(train_dataset) if train_dataset is not None else 1
+        self.optimizer = make_optimizer(self.model, args, n)
+        self.total_steps = self.optimizer.total_steps
+        self.generator = torch.Generator(device=self.device).manual_seed(args.seed)
+        self.log_history: list[dict] = []
+        self.global_step = 0
+        self.total_flos = 0.0
+        self._flos_per_micro_step: dict[tuple, float] = {}  # (target bucket, mask dtype) -> flops
+
+    def _steps_per_epoch(self) -> int:
+        """Optimizer steps per epoch (micro-batches / gradient_accumulation_steps)."""
+        n = len(self.train_dataset) if self.train_dataset is not None else 1
+        micro = max(1, math.ceil(n / self.args.per_device_train_batch_size))
+        return max(1, math.ceil(micro / max(1, self.args.gradient_accumulation_steps)))
+
+    def _preprocess(self, dataset) -> Optional[PreprocessConfig]:
+        return getattr(dataset, "preprocess", None)
+
+    def _micro_step(self, batch: TrainBatch, preprocess):
+        """One micro-step; the first of each target bucket also counted for
+        `total_flos` (FlopCounterMode plus the kernels' own formulas)."""
+        key = (int(batch.mask_labels.shape[1]), str(batch.mask_labels.dtype))
+        if key in self._flos_per_micro_step:
+            loss, _ = micro_step(self.model, self.optimizer, batch, self.generator, preprocess)
+        else:
+            from torch.utils.flop_counter import FlopCounterMode
+
+            k0 = sum(kernels.FLOPS.values())
+            with FlopCounterMode(display=False) as counter:
+                loss, _ = micro_step(self.model, self.optimizer, batch, self.generator, preprocess)
+            self._flos_per_micro_step[key] = float(counter.get_total_flops() + sum(kernels.FLOPS.values()) - k0)
+        self.total_flos += self._flos_per_micro_step[key]
+        return loss
+
+    def _restore(self, path: str) -> None:
+        """Load a checkpoint into this trainer's model, optimizer and generator."""
+        self.global_step = load_checkpoint(path, self.model, self.optimizer, self.generator)
+        ts_path = os.path.join(self.args.output_dir, "trainer_state.json")
+        if os.path.exists(ts_path):
+            with open(ts_path) as f:
+                self.total_flos = float(json.load(f).get("total_flos", 0.0))
+
+    def train(self, resume_from_checkpoint: Optional[str] = None) -> dict:
+        args = self.args
+        os.makedirs(args.output_dir, exist_ok=True)
+        pp = self._preprocess(self.train_dataset)
+        if args.pack_targets and hasattr(self.train_dataset, "pack_gt"):
+            # batches carry bit-packed GT twins; put_batch ships those and the step unpacks them
+            self.train_dataset.pack_gt = True
+        if resume_from_checkpoint:
+            self._restore(resume_from_checkpoint)
+            logger.info("resumed from %s at step %d", resume_from_checkpoint, self.global_step)
+        ga = max(1, args.gradient_accumulation_steps)
+        b = args.per_device_train_batch_size
+        steps_per_epoch = self._steps_per_epoch()
+        start_epoch = self.global_step // steps_per_epoch
+        num_epochs = int(args.num_train_epochs)
+        logger.info("***** Running training ***** epochs=%s steps/epoch=%s device=%s", num_epochs, steps_per_epoch,
+                    self.device)
+        t0 = time.time()
+        total_loss, loss_count = 0.0, 0
+        first_step_logged = False
+        prof = None
+        self.optimizer.zero_grad(set_to_none=True)
+        for epoch in range(start_epoch, num_epochs):
+            epoch_losses, epoch_gnorm = [], []
+            micro_in_step = 0
+            for batch in self.train_dataset.batches(b, shuffle=True, seed=args.seed, epoch=epoch,
+                                                    num_workers=args.dataloader_num_workers):
+                tb = put_batch(batch, args, self.device)
+                if prof is None and args.profile_start_step is not None and self.global_step == args.profile_start_step:
+                    prof = _start_profiler(self.device)
+                loss = self._micro_step(tb, pp)
+                micro_in_step += 1
+                if micro_in_step == ga:
+                    epoch_gnorm.append(apply_step(self.optimizer, micro_in_step))
+                    micro_in_step = 0
+                    self.global_step += 1
+                if prof is not None and self.global_step == args.profile_stop_step:
+                    _stop_profiler(prof, self.device, args.output_dir)
+                    prof = None
+                epoch_losses.append(loss)
+                if not first_step_logged:
+                    first_step_logged = True
+                    logger.info("first train step done in %.1fs, loss=%.4f", time.time() - t0, float(loss))
+            if micro_in_step:
+                # epoch-end remainder: step on the exact mean of what was accumulated
+                epoch_gnorm.append(apply_step(self.optimizer, micro_in_step))
+                micro_in_step = 0
+                self.global_step += 1
+
+            losses = torch.stack(epoch_losses).cpu()
+            total_loss += sum(losses.tolist())
+            loss_count += len(epoch_losses)
+            entry = {
+                "loss": round(float(losses.mean()), 4),
+                "grad_norm": float(torch.stack(epoch_gnorm).mean()),
+                "learning_rate": float(self.optimizer.schedule(self.global_step)),
+                "epoch": float(epoch + 1),
+                "step": self.global_step,
+            }
+            self.log_history.append(entry)
+            logger.info("epoch %d: %s", epoch + 1, entry)
+            if args.do_eval and args.eval_strategy == "epoch" and self.eval_dataset is not None:
+                metrics = self.evaluate()
+                metrics["epoch"] = float(epoch + 1)
+                metrics["step"] = self.global_step
+                self.log_history.append(metrics)
+            if args.save_strategy == "epoch":
+                self._save(args.output_dir)
+        if prof is not None:
+            _stop_profiler(prof, self.device, args.output_dir)
+
+        runtime = time.time() - t0
+        n_samples = len(self.train_dataset) * max(num_epochs - start_epoch, 0)
+        metrics = {
+            "train_runtime": round(runtime, 4),
+            "train_samples_per_second": round(n_samples / max(runtime, 1e-9), 3),
+            "train_steps_per_second": round((self.global_step - start_epoch * steps_per_epoch) / max(runtime, 1e-9), 3),
+            "train_loss": total_loss / max(loss_count, 1),
+            "epoch": float(num_epochs),
+            "total_flos": self.total_flos,
+        }
+        self.save_state()
+        return metrics
+
+    def _save(self, output_dir: str) -> str:
+        return save_checkpoint(output_dir, self.global_step, self.model, self.optimizer, self.generator,
+                               self.args.save_total_limit)
+
+    def save_state(self) -> None:
+        path = os.path.join(self.args.output_dir, "trainer_state.json")
+        os.makedirs(self.args.output_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"global_step": self.global_step, "log_history": self.log_history, "best_metric": None,
+                       "total_flos": self.total_flos}, f, indent=2)
+
+    def _eval_generator(self) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(self.args.seed)
+
+    def _eval_batches(self, dataset):
+        """The dataset's batches at per_device_eval_batch_size, their GT
+        bit-packed by the pipeline and, under `compact_instances`, compacted as
+        the train step's (the JAX Trainer's eval goes through the same `_put`)."""
+        if hasattr(dataset, "pack_gt"):
+            dataset.pack_gt = True
+        for batch in dataset.batches(self.args.per_device_eval_batch_size,
+                                     num_workers=self.args.dataloader_num_workers):
+            if self.args.compact_instances:
+                packed = batch.mask_labels_packed
+                out = compact_targets(batch.mask_labels, batch.class_labels, batch.valid,
+                                      self.args.instance_bucket_floor, packed=packed)
+                batch = dataclasses.replace(batch, mask_labels=out[0], class_labels=out[1], valid=out[2],
+                                            mask_labels_packed=out[3] if packed is not None else None)
+            yield batch
+
+    def evaluate(self, dataset=None, prefix: str = "eval_") -> dict:
+        """`evaluate` over `dataset` (default: the eval dataset), the padded rows
+        of the last batch cut, the loss points from a generator seeded with
+        `args.seed`."""
+        dataset = dataset or self.eval_dataset
+        return evaluate(self.model, self._eval_batches(dataset), self.id2label, self._preprocess(dataset),
+                        prefix=prefix, generator=self._eval_generator(), bf16=self.args.bf16,
+                        num_examples=len(dataset))
+
+    def predict(self, dataset, prefix: str = "test_") -> tuple[list, dict]:
+        """(host logits of each batch cut to its real rows, metrics over them)."""
+        batches = list(self._eval_batches(dataset))
+        return predict(self.model, batches, self.id2label, self._preprocess(dataset), prefix=prefix,
+                       num_examples=len(dataset), bf16=self.args.bf16, generator=self._eval_generator())
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device: torch.device, output_dir: str) -> None:
+    """Stop the profiler and write its trace to output_dir/profile/trace.json."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = os.path.join(output_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    logger.info("profiler trace written to %s", out)

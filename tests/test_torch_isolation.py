@@ -1,5 +1,6 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package (nor
-cv2 or PIL, and matplotlib only inside the one function that draws with it),
+cv2, PIL, safetensors or transformers, which the card's machine lacks, and
+matplotlib only inside the one function that draws with it),
 its native code is loaded through ctypes only, its entry points run on the
 card unless asked otherwise, the kernel wrappers take the plain versions only
 for CPU tensors without counting a launch, and the JAX package's variables
@@ -36,8 +37,9 @@ from rgbdseg_torch.train.trainer import build_training, put_batch
 from rgbdseg_torch.utils.weights import from_flax
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL"}
-PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL", "safetensors", "transformers"}
+PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [
+    REPO / name for name in ("chip_smoke.py", "kernel_ab.py", "finetune_torch.py", "predict_torch.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -89,12 +89,21 @@ def test_parse_args_equals_jax(tmp_path):
         [f.name for f in dataclasses.fields(jargs.TrainingArguments)]
 
 
-@pytest.mark.parametrize("field,value", [("num_devices", 2), ("model_parallel_size", 2), ("push_to_hub", True),
-                                         ("profile_start_step", 1), ("resume_from_checkpoint", "out/checkpoint-3")])
+@pytest.mark.parametrize("field,value", [("num_devices", 2), ("model_parallel_size", 2)])
 def test_unported_arguments_raise_naming_roadmap(field, value):
     args = targs.TrainingArguments(**{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP.md §1 item"):
         build_training(ModelConfig.tiny(num_labels=NUM_LABELS, version="0.4.0"), args, 4, device="cpu")
+    assert set(targs.UNPORTED) == {"num_devices", "model_parallel_size"}
+
+
+@pytest.mark.parametrize("field,value", [("push_to_hub", True), ("profile_start_step", 1),
+                                         ("resume_from_checkpoint", "out/checkpoint-3")])
+def test_ported_arguments_are_accepted(field, value):
+    """The epoch loop honours these now (train/trainer.py::Trainer, train/hub.py)."""
+    args = targs.TrainingArguments(**{field: value})
+    targs.check_supported(args)
+    build_training(ModelConfig.tiny(num_labels=NUM_LABELS, version="0.4.0"), args, 4, device="cpu")
 
 
 def test_optimizer_steps_count_accumulation_as_jax():
