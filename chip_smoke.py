@@ -102,7 +102,22 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      set, from `--checkpoint checkpoint-8` and from `--hf_checkpoint` of the
      run's export: the logits equal bit for bit, 6 K1 and 9 K3 launches each,
      the overlay PNG written;
-  17. a `kernels` JSON line; the last line is the device JSON.
+  17. versions: the 13 ablation versions (0.0.1-0.0.7, 0.1.0-0.1.3, 0.2.0,
+     0.3.0) at full width, each with seeded weights: 3 `predict_example`
+     requests of raw 720x1280 frames built on the card (the two host-only
+     layouts, 0.0.4's and 0.2.0's, whose record lists 10 frames, from 480x640
+     frames by the host map function), 6 K1 and 9 K3 launches each, request
+     ms and a stage split; the card-built stack of raw frames equal to the
+     host map function's bit for bit; the logits of that stack on the card
+     against a CPU copy's (SLICE_RTOL), on the CPU's own decoder attention
+     masks and on the GPU's, with the count of mask entries that differ, at
+     480x640 for the four trained versions and at VERSIONS_CMP_HW for the
+     others; for 0.1.1 the stack in two layouts gives equal logits. Then a `micro_step` + `apply_step` at batch 2 for 0.0.7,
+     0.1.1, 0.2.0 and 0.3.0: finite loss, norm and gradients, 6 + 9 launches
+     forward and backward, 0.0.7's intrinsics predictor unchanged bit for
+     bit; 0.0.7 and 0.1.1 also step 0 against the CPU (on the GPU's attention
+     masks, STEP0_SAME_RTOL);
+  18. a `kernels` JSON line; the last line is the device JSON.
 With --profile, phases 4, 6 and 13 also profile one request, one train step
 and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
 busy share and the kernels that take the most device time.
@@ -186,6 +201,10 @@ NYU_STEPS = 398  # an NYUv2 epoch: 795 training frames at batch 2
 # relative difference of small gradients; allowing ~4x per optimizer step over
 # the 4 steps of epoch 1 and the 4 averaged in epoch 2 (2.4e-7 x 4^6) gives 1e-3.
 RESUME_LOSS_RTOL = 1e-3
+# The versions phase compares the card's logits with the CPU's at 480x640 for
+# the four versions it trains and at this size for the other nine, whose CPU
+# forwards at full width and 480x640 would hold the phase past its two minutes.
+VERSIONS_CMP_HW = (240, 320)
 EVAL_N, EVAL_B = 8, 2  # eval examples and batch
 LEVELS = ((15, 20), (30, 40), (60, 80))  # deformable levels at 480x640
 KEYS = (300, 1200, 4800)  # masked cross-attention keys at 480x640
@@ -919,14 +938,29 @@ def kernel_fed_leaves(cfg) -> list[str]:
             if not (m.endswith("k_proj") and p == "bias")]
 
 
-def step0_gpu_vs_cpu(state, batch) -> None:
+def mask_hook(own: list, masks=None):
+    """A forward hook for the decoder's mask predictor: it appends each layer's
+    attention mask (mask logits, all-blocked rows) to `own` on the CPU, and
+    with `masks` replaces it by the given one (moved to the model's device)."""
+    def hook(module, inputs, output):
+        pred, attn_mask = output
+        own.append(tuple(t.cpu() for t in attn_mask))
+        if masks is not None:
+            return pred, tuple(t.to(pred.device) for t in masks[len(own) - 1])
+        return None
+
+    return hook
+
+
+def step0_gpu_vs_cpu(state, batch, version: str = "0.4.0", own_masks: bool = True) -> None:
     """Phase 7: one forward and backward from the step-0 weights on the GPU and on
     a CPU copy, dropout and drop path off, the same point coordinates injected
     into the criterion on both: loss, gradient norm, and the gradients of the
     kernel-fed parameters each against its own scale. The CPU runs twice: on its
     own decoder attention masks, and on the GPU's (substituted after each mask
     prediction), which shows how much of the difference the masks' sign flips
-    at logit 0 make."""
+    at logit 0 make; with `own_masks` False (the versions phase) only on the
+    GPU's, to the tighter limits."""
     import torch
 
     from rgbdseg_torch.config import ModelConfig
@@ -936,7 +970,7 @@ def step0_gpu_vs_cpu(state, batch) -> None:
     from rgbdseg_torch.ops import losses
     from rgbdseg_torch.train.optim import global_norm
 
-    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    cfg = ModelConfig(num_labels=40, version=version)
     leaves = kernel_fed_leaves(cfg)
     draws = {}
 
@@ -959,13 +993,7 @@ def step0_gpu_vs_cpu(state, batch) -> None:
             elif isinstance(m, SwinBlock):
                 m.drop_path_rate = 0.0
         own = []
-
-        def hook(module, inputs, output):
-            pred, attn_mask = output
-            own.append(tuple(t.cpu() for t in attn_mask))
-            return None if masks is None else (pred, masks[len(own) - 1])
-
-        model.transformer_module.mask_predictor.register_forward_hook(hook)
+        model.transformer_module.mask_predictor.register_forward_hook(mask_hook(own, masks))
         b = [t.to(device) for t in batch]
         out = model(b[0])
         loss, _ = losses.mask2former_loss(cfg, out, *b[1:], None)
@@ -996,16 +1024,17 @@ def step0_gpu_vs_cpu(state, batch) -> None:
     try:
         gpu = run("cuda")
         t = time.perf_counter()
-        cpu = run("cpu")
-        cpu_s = time.perf_counter() - t
         cpu_gpu_masks = run("cpu", gpu[3])
+        cpu_s = time.perf_counter() - t
+        cpu = run("cpu") if own_masks else None
     finally:
         losses._uniform = original
-    own = compare("(CPU on its own attention masks)", gpu, cpu)
-    same = compare("(CPU on the GPU's attention masks)", gpu, cpu_gpu_masks)
-    log(f"step0: limits {STEP0_OWN_RTOL} on its own masks, {STEP0_SAME_RTOL} on the GPU's (loss, norm, leaf); "
-        f"each CPU forward and backward {cpu_s:.1f} s")
-    for label, got, tols in (("own", own, STEP0_OWN_RTOL), ("GPU", same, STEP0_SAME_RTOL)):
+    checks = [("GPU", compare(f"{version} (CPU on the GPU's attention masks)", gpu, cpu_gpu_masks), STEP0_SAME_RTOL)]
+    if own_masks:
+        checks.insert(0, ("own", compare(f"{version} (CPU on its own attention masks)", gpu, cpu), STEP0_OWN_RTOL))
+    log(f"step0 {version}: limits {STEP0_OWN_RTOL} on its own masks, {STEP0_SAME_RTOL} on the GPU's (loss, norm, "
+        f"leaf); each CPU forward and backward {cpu_s:.1f} s")
+    for label, got, tols in checks:
         if not all(x <= tol for x, tol in zip(got, tols)):
             raise AssertionError(f"step 0 on GPU and CPU disagree (CPU on the {label} attention masks): {got[:3]} > {tols}")
 
@@ -1809,6 +1838,232 @@ def run_predict_entry(run: Path, set_root: Path) -> None:
         f"and from the HF export equal bit for bit")
 
 
+# The versions phase (17): the 13 ablation versions. The four families' train
+# steps (0.0.7: intrinsics normals; 0.1.1: dual backbone and FeatureFuser;
+# 0.2.0: CSF; 0.3.0: backbone ratio), two of them also step 0 against the CPU.
+TRAIN_VERSIONS = ("0.0.7", "0.1.1", "0.2.0", "0.3.0")
+STEP0_VERSIONS = ("0.0.7", "0.1.1")
+
+
+def version_frames(rng, version: str, h: int, w: int, boxes: int = 4):
+    """(the raw uint8 frames a record of `version` lists, the instance map): the
+    RGB and the depth (a gray plane with 1% holes, as its PNG reads in RGB); for
+    0.3.0 a third frame, the depth's gradient image (its Sobel magnitude,
+    saturated to uint8); for 0.2.0 eight augmentation frames, the depth rescaled
+    as `data/synthetic.py` writes them."""
+    from rgbdseg_torch.data.depth_features import compute_depth_gradient
+    from rgbdseg_torch.data.synthetic import convert_scale_abs
+    from rgbdseg_torch.versions import get as get_version
+
+    rgb, depth, inst = synthetic_frame(rng, h, w, boxes)
+    frames = [rgb, depth_rgb(depth)]
+    map_fn = get_version(version).map_fn
+    if map_fn == "map_10channel_case1":
+        frames.append(depth_rgb(np.clip(compute_depth_gradient(depth), 0, 255).astype(np.uint8)))
+    elif map_fn == "map_30channel":
+        frames += [depth_rgb(convert_scale_abs(depth, 1.0 + 0.1 * m, 5 * m)) for m in range(8)]
+    return frames, inst
+
+
+def masked_forward(model, x, masks=None):
+    """((class, mask) logits on the CPU, each decoder layer's attention mask as
+    (mask logits, all-blocked rows) on the CPU) of an eval forward; with
+    `masks`, each layer's attention mask is replaced by the given one."""
+    own = []
+    handle = model.transformer_module.mask_predictor.register_forward_hook(mask_hook(own, masks))
+    try:
+        out = model(x)
+    finally:
+        handle.remove()
+    return (out.class_queries_logits.cpu(), out.masks_queries_logits.cpu()), own
+
+
+def serve_version(seed: int, rng, version: str, cmp_hw) -> dict:
+    """3 `predict_example` requests of the full-width model of `version` through
+    the kernels (raw 720x1280 frames built on the card; the host-only layouts
+    from 480x640 frames by the host map function), 6 K1 and 9 K3 each; the
+    card-built stack of raw `cmp_hw` frames against the host map function's,
+    bit for bit; the logits of that stack on the card against the CPU copy's,
+    on the CPU's own decoder attention masks and on the GPU's, each within
+    SLICE_RTOL, with the count of mask entries whose blocked test differs."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.data import device_preprocess as DP
+    from rgbdseg_torch.data import registry as R
+    from rgbdseg_torch.inference.predictor import Predictor
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.versions import get as get_version
+
+    cfg = ModelConfig(num_labels=40, version=version)
+    map_fn = get_version(version).map_fn
+    on_card = DP.supported(map_fn)
+    (pred, t_build) = _timed(lambda: Predictor(cfg, device="cuda", seed=seed,
+                                              preprocess=PreprocessConfig(height=480, width=640)))
+    req_hw = (720, 1280) if on_card else (480, 640)
+    requests = [version_frames(rng, version, *req_hw)[0] for _ in range(3)]
+    ms = []
+    for i, frames in enumerate(requests):
+        K.reset_launches()
+        res, t = _timed(lambda: pred.predict_example({"image": frames}, threshold=0.0))
+        _launch_check(f"versions {version} request {i}", SERVE_LAUNCHES)
+        ms.append(t)
+    upload, launches = pred.last_upload_bytes, dict(K.LAUNCHES)
+
+    # Where a request's time goes: the stack built (on the card or the host), the forward, post-processing.
+    frames = requests[0]
+    if on_card:
+        width = DP.packed_width(map_fn)
+        flat_np = np.concatenate([f.reshape(-1) for f in frames[: width // 3]])
+
+        def build():
+            flat = torch.from_numpy(flat_np).to("cuda")
+            views = [flat[i * frames[0].size:(i + 1) * frames[0].size].reshape(1, *frames[0].shape)
+                     for i in range(width // 3)] + [None, None]
+            return DP.build_pixels(map_fn, views[0], views[1], pred.preprocess, views[2])
+    else:
+        def build():
+            pix = R.MAP_FUNCTIONS[map_fn]({"image": frames}, pred.preprocess)[0]
+            return torch.from_numpy(pix[None]).to("cuda")
+    from rgbdseg_torch.inference.postprocess import post_process_instance_segmentation
+
+    pix, t_stack = _timed(build)
+    (cls, masks), t_fwd = _timed(lambda: pred._forward(pix))
+    _, t_post = _timed(lambda: post_process_instance_segmentation(cls, masks, threshold=0.0,
+                                                                  target_sizes=[(480, 640)]))
+
+    # The card against the CPU on one stack of raw cmp_hw frames.
+    pp = PreprocessConfig(height=cmp_hw[0], width=cmp_hw[1])
+    frames = version_frames(rng, version, *cmp_hw)[0]
+    host = R.MAP_FUNCTIONS[map_fn]({"image": frames}, pp)[0]
+    stack = torch.from_numpy(host[None])  # numpy's a[None]: batch stride 0
+    bitwise = "host-built"
+    if on_card:
+        width = DP.packed_width(map_fn)
+        packed = torch.from_numpy(np.concatenate(frames[: width // 3], axis=-1)[None]).to("cuda")
+        card = DP.build_from_packed(map_fn, packed, pp).cpu()
+        if not torch.equal(card, stack):
+            raise AssertionError(f"versions {version}: the card-built stack differs from the host's by "
+                                 f"{(card - stack).abs().max().item()}")
+        bitwise = "card = CPU bit for bit"
+    with torch.no_grad():
+        gpu, gpu_masks = masked_forward(pred.model, stack.to("cuda"))
+        if version == "0.1.1":  # one dual-backbone stack in two layouts: equal logits
+            full = [t.cpu() for t in pred._forward(stack.to("cuda").clone(memory_format=torch.contiguous_format))]
+            if not all(torch.equal(a, b) for a, b in zip(gpu, full)):
+                raise AssertionError("versions 0.1.1: one stack in two layouts gave different logits")
+        cpu_model = pred.model.__class__(cfg)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in pred.model.state_dict().items()}, strict=True)
+        cpu_model.eval()
+        t = time.perf_counter()
+        cpu, cpu_masks = masked_forward(cpu_model, stack)
+        cpu_s = time.perf_counter() - t
+        same, _ = masked_forward(cpu_model, stack, gpu_masks)
+    # The decoder blocks a key where a mask logit is < 0: a logit that sits at 0
+    # can fall on either side on the two devices and move the later layers.
+    flips = sum((((ga < 0) & ~gb[..., None]) != ((ca < 0) & ~cb[..., None])).sum().item()
+                for (ga, gb), (ca, cb) in zip(gpu_masks[:-1], cpu_masks[:-1]))
+    errs = []
+    for i, name in enumerate(("class", "mask")):
+        if not torch.isfinite(gpu[i]).all():
+            raise AssertionError(f"versions {version}: non-finite {name} logits on the GPU")
+        diff, scale = (gpu[i] - cpu[i]).abs().max().item(), cpu[i].abs().max().item()
+        diff_same = (gpu[i] - same[i]).abs().max().item()
+        if not (diff <= SLICE_RTOL * max(1.0, scale) and diff_same <= SLICE_RTOL * max(1.0, scale)):
+            raise AssertionError(f"versions {version}: {name} logits GPU vs CPU differ by {diff} ({diff_same} on "
+                                 f"the GPU's attention masks; max |logit| {scale})")
+        errs.append((diff, scale, diff_same))
+    row = {"version": version, "map_fn": map_fn, "on_card": on_card, "ms": ms, "upload": upload,
+           "stages": {"stack": t_stack, "forward": t_fwd, "post_process": t_post},
+           "launches": launches, "errs": errs, "flips": flips, "cmp_hw": cmp_hw, "bitwise": bitwise,
+           "params": sum(p.numel() for p in pred.model.parameters()), "build_s": t_build / 1e3, "cpu_s": cpu_s}
+    log(f"versions {version} ({map_fn}, {'built on the card from 720x1280' if on_card else 'host-built from 480x640'}"
+        f"): request ms {[round(x, 2) for x in ms]}, steady {round(sum(ms[1:]) / 2, 2)}, {upload} bytes up, "
+        f"launches {launches} per request; stages ms stack {t_stack:.2f} forward {t_fwd:.2f} post "
+        f"{t_post:.2f}; GPU vs CPU at {cmp_hw[0]}x{cmp_hw[1]} (class, mask) max_abs_diff "
+        f"{errs[0][0]:.3e}, {errs[1][0]:.3e} of max |logit| {errs[0][1]:.3e}, {errs[1][1]:.3e} (tol {SLICE_RTOL:g} x "
+        f"max(1, max |logit|)); {flips} attention-mask entries differ, on the GPU's masks {errs[0][2]:.3e}, "
+        f"{errs[1][2]:.3e}; stack {bitwise}; {row['params']} parameters, built {row['build_s']:.1f} s, "
+        f"CPU forward {cpu_s:.1f} s")
+    del pred
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_version(seed: int, rng, version: str) -> None:
+    """One `micro_step` + `apply_step` of the full-width model of `version` at
+    batch 2 of raw 480x640 frames (packed uint8, built in the step; 0.2.0's
+    host-only stacks as float32), 6 K1 and 9 K3 forward and backward; loss,
+    gradient norm and every gradient finite (0.0.7's depth has 1% holes, so its
+    normals have NaN points, detached); 0.0.7's intrinsics predictor unchanged
+    bit for bit. For STEP0_VERSIONS also step 0 against the CPU."""
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.data import device_preprocess as DP
+    from rgbdseg_torch.data import registry as R
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.train.arguments import TrainingArguments
+    from rgbdseg_torch.train.trainer import TrainBatch, apply_step, build_training, micro_step
+    from rgbdseg_torch.versions import get as get_version
+
+    cfg = ModelConfig(num_labels=40, version=version)
+    map_fn = get_version(version).map_fn
+    pp = PreprocessConfig(height=480, width=640)
+    args = TrainingArguments(learning_rate=1e-4, weight_decay=0.05, per_device_train_batch_size=TRAIN_B)
+    model, opt = build_training(cfg, args, num_examples=TRAIN_B, seed=seed)
+    step0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    raw, stacks, masks = [], [], []
+    for _ in range(TRAIN_B):
+        frames, inst = version_frames(rng, version, 480, 640, boxes=TRAIN_T)
+        width = DP.packed_width(map_fn) if DP.supported(map_fn) else 0
+        raw.append(np.concatenate(frames[: width // 3], axis=-1) if width else None)
+        stacks.append(R.MAP_FUNCTIONS[map_fn]({"image": frames}, pp)[0])
+        masks.append(np.stack([inst == i + 1 for i in range(TRAIN_T)]).astype(np.float32))
+    masks = np.stack(masks)
+    valid = masks.any(axis=(2, 3))
+    classes = rng.randint(0, cfg.num_labels, (TRAIN_B, TRAIN_T))
+    pix = np.stack(raw) if raw[0] is not None else np.stack(stacks)
+    batch = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in (pix, masks, classes, valid)))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opt.zero_grad(set_to_none=True)
+    K.reset_launches()
+    (loss, _), t_micro = _timed(lambda: micro_step(model, opt, batch, gen, pp))
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    norm, t_apply = _timed(lambda: apply_step(opt, 1))
+    _launch_check(f"versions {version} train step", TRAIN_LAUNCHES)
+    loss, norm = loss.item(), norm.item()
+    if bad or not (np.isfinite(loss) and np.isfinite(norm)):
+        raise AssertionError(f"versions {version} train step: loss {loss}, norm {norm}, non-finite {bad[:5]}")
+    frozen = ""
+    if version == "0.0.7":
+        names = [n for n in step0 if n.startswith("pixel_level_module.intrinsics_predictor.")]
+        params = dict(model.named_parameters())
+        moved = [n for n in names if not torch.equal(params[n].detach().cpu(), step0[n])]
+        if not names or moved or any(params[n].grad is not None for n in names):
+            raise AssertionError(f"versions 0.0.7: the intrinsics predictor moved: {moved[:5]}")
+        frozen = f"; intrinsics predictor ({len(names)} tensors) unchanged bit for bit"
+    log(f"versions {version} train step (batch {TRAIN_B}, {'packed raw frames' if raw[0] is not None else 'host stacks'}"
+        f"): micro-step {t_micro:.2f} ms, apply {t_apply:.2f} ms, loss {loss:.6f}, grad norm {norm:.6f}, "
+        f"{len(grads)} gradients finite, launches {dict(K.LAUNCHES)}{frozen}")
+    if version in STEP0_VERSIONS:
+        host = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (np.stack(stacks), masks, classes, valid)))
+        step0_gpu_vs_cpu(step0, host, version, own_masks=False)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def run_versions(seed: int, rng) -> None:
+    """Phase 17: the 13 ablation versions at full width, served and trained."""
+    from rgbdseg_torch import versions as V
+
+    for version in sorted(set(V.REGISTRY) - {"0.0.0", "0.4.0"}):
+        serve_version(seed, rng, version, (480, 640) if version in TRAIN_VERSIONS else VERSIONS_CMP_HW)
+    for version in TRAIN_VERSIONS:
+        train_version(seed, rng, version)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1864,6 +2119,8 @@ def main(argv=None) -> int:
     log(f"finetune: phase took {t_ft / 1e3:.1f} s")
     _, t_entry = _timed(lambda: run_predict_entry(run, set_root))
     log(f"predict entry: phase took {t_entry / 1e3:.1f} s")
+    _, t_versions = _timed(lambda: run_versions(args.seed, rng))
+    log(f"versions: phase took {t_versions / 1e3:.1f} s")
     launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
 
     meta = {

@@ -2,9 +2,12 @@
 """Inference CLI of the PyTorch port (the counterpart of `predict.py`;
 reference `predictor.py`).
 
-Single image (RGB-D versions take the depth frame too):
+Single image (RGB-D versions take the depth frame too; 0.3.0 its on-disk
+gradient image as a third frame, 0.2.0 eight augmentation frames, each given
+by one `--extra_frame`):
     python predict_torch.py --checkpoint out/checkpoint-N --version 0.4.0 --num_labels 3 \
         --image img.png --depth depth.png --save overlay.png [--device cpu]
+    python predict_torch.py --version 0.3.0 --image img.png --depth depth.png --extra_frame grad.png
     python predict_torch.py --hf_checkpoint out --image img.png --depth depth.png --save overlay.png
 Multi-model comparison from exported JSONs:
     python predict_torch.py --compare --gt_json gt.json --model_json name=pred.json --output_dir viz/
@@ -40,6 +43,8 @@ def main(argv=None, device=None):
     ap.add_argument("--num_labels", type=int, default=2)
     ap.add_argument("--image")
     ap.add_argument("--depth")
+    ap.add_argument("--extra_frame", action="append", default=[],
+                    help="frames after the depth, in the order of a meta-JSON record's \"image\" list")
     ap.add_argument("--save")
     ap.add_argument("--threshold", type=float, default=0.5)
     ap.add_argument("--image_height", type=int, default=256)
@@ -89,8 +94,8 @@ def main(argv=None, device=None):
         predictor.model.load_state_dict(load_checkpoint_partial(args.checkpoint), strict=True)
 
     if args.depth:
-        res, _ = predictor.predict_and_overlay_files([args.image, args.depth], threshold=args.threshold,
-                                                     save=args.save)
+        res, _ = predictor.predict_and_overlay_files([args.image, args.depth, *args.extra_frame],
+                                                     threshold=args.threshold, save=args.save)
     else:
         res, _ = predictor.predict_and_overlay(load_rgb(args.image), threshold=args.threshold, save=args.save)
     for seg in res["segments_info"]:

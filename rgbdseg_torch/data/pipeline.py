@@ -143,18 +143,15 @@ class SegmentationDataset:
         channels on the device (`device_preprocess.build_from_packed`, exact
         to the host builders). The mode is decided up front from header-only
         size reads and turns itself off for the whole dataset when an example
-        is ineligible (unsupported layout, an augmentation transform, or frames
-        of more than one size), so one batch never mixes the two layouts."""
+        is ineligible (a layout built on the host only, such as the 10-frame
+        records of `map_30channel`, an augmentation transform, or frames of
+        more than one size), so one batch never mixes the two layouts."""
         self.records = records
         self.version = version
         self.preprocess = preprocess
         self.max_instances = max_instances
         self.device_channels = device_channels and self._probe_device_channels()
-        map_fn = get_version(version).map_fn
-        if map_fn not in R.MAP_FUNCTIONS:
-            raise NotImplementedError(f"version {version}: map function {map_fn} is not ported yet "
-                                      "(ROADMAP.md §1 item 4)")
-        self.map_fn = R.MAP_FUNCTIONS[map_fn]
+        self.map_fn = R.MAP_FUNCTIONS[get_version(version).map_fn]
         # Processed examples are cached on first access, up to `cache_bytes_limit`
         # (the reference materialises them once through datasets.map).
         self._cache: Optional[dict[int, tuple]] = {} if cache else None

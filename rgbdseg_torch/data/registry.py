@@ -19,8 +19,13 @@ read with cv2.IMREAD_UNCHANGED): channel 1 holds instance ids, channel 2
 semantic ids, and the (instance, semantic) pairs of channels [1:] define
 instance_id_to_semantic_id.
 
-Ported layouts: `map_3channel` (0.0.0) and `map_10channel_case2` (0.4.0); the
-others come with their versions (ROADMAP.md).
+Every layout of the JAX package's registry. Two are built on the host only,
+as in the JAX package: `map_7channel_g` (the uint8 cast of a float64 Sobel
+magnitude) and `map_30channel` (CSF over 8 augmentation frames, `ops/csf.py`).
+Raw-channel quirks of the reference are kept: derived channels (gradients,
+normals, gray depth, validity masks) are appended unnormalised, and the
+validity masks of gradient images threshold the cv2-resized image at > 50 on
+any channel (dataloader.py:163, 246, 374).
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ import numpy as np
 import torch
 
 from ..config import PreprocessConfig
+from ..ops.csf import csf_fuse
+from ..ops.resize_exact import cv2_resize_linear_u8
 from . import image_io
-from .device_preprocess import build_pixels
-from .preprocess import instance_map_to_binary_masks, output_size, resize_image
+from .depth_features import compute_depth_gradient
+from .device_preprocess import build_pixels, packed_width, pil_grayscale_u8
+from .preprocess import instance_map_to_binary_masks, output_size, process_image, resize_image
 
 
 def _load_mask(annotation) -> np.ndarray:
@@ -115,33 +123,95 @@ def _color_and_mask(example) -> tuple[np.ndarray, np.ndarray]:
     return color, mask
 
 
-def _pixels(map_fn_name: str, color: np.ndarray, depth: np.ndarray | None, cfg: PreprocessConfig) -> np.ndarray:
-    """One example's channel stack from the channel builder, on CPU tensors."""
-    def t(x):
-        return None if x is None else torch.from_numpy(np.ascontiguousarray(x))[None]
-
-    return build_pixels(map_fn_name, t(color), t(depth), cfg)[0].numpy()
+def _depth_gray(example_images, idx=1) -> np.ndarray:
+    """PIL's ``convert("L")`` of the frame: (H, W) uint8."""
+    return pil_grayscale_u8(torch.from_numpy(_depth_rgb(example_images, idx))).numpy()
 
 
-def map_3channel(example, cfg: PreprocessConfig):
+def _cv2_resize_linear(img: np.ndarray, size_hw) -> np.ndarray:
+    return cv2_resize_linear_u8(torch.from_numpy(np.ascontiguousarray(img)), tuple(size_hw),
+                                has_channels=img.ndim == 3).numpy()
+
+
+def _built(map_fn_name: str):
+    """The map function of a layout the channel builder builds: its frames
+    (`packed_width` // 3 of them) through `build_pixels` on CPU tensors."""
+    frames = packed_width(map_fn_name) // 3
+
+    def map_fn(example, cfg: PreprocessConfig):
+        color_raw, mask = _color_and_mask(example)
+        instance_map, mapping = _mask_and_mapping(mask)
+        rgb, depth, grad = (
+            torch.from_numpy(np.ascontiguousarray(_depth_rgb(example["image"], i) if i else color_raw))[None]
+            if i < frames else None for i in range(3))
+        pix = build_pixels(map_fn_name, rgb, depth, cfg, grad)[0].numpy()
+        masks, labels = _labels(instance_map, mapping, cfg)
+        return pix, masks, labels
+
+    map_fn.__name__ = map_fn.__qualname__ = map_fn_name
+    return map_fn
+
+
+map_3channel = _built("map_3channel")
+map_6channel = _built("map_6channel")
+# RGB + the gradient-depth image on disk + its > 50 validity mask
+map_7channel_tmp = _built("map_7channel_tmp")
+# RGB + normalised gradient features of the resized gray depth (raw) + validity
+map_7channel_g2 = _built("map_7channel_g2")
+# RGB + surface normals of the resized gray depth (raw) + validity
+map_7channel_s = _built("map_7channel_s")
+# RGB + the raw resized gray depth (version 0.0.7)
+map_7channel_s2 = _built("map_7channel_s2")
+# RGB + depth + the gradient-depth image on disk + its > 50 validity mask
+map_10channel_case1 = _built("map_10channel_case1")
+# Final-model (0.4.0) input: RGB + depth + gradient features of the resized
+# gray depth + validity mask (reference: dataloader.py:386-425)
+map_10channel_case2 = _built("map_10channel_case2")
+
+
+def map_7channel_g(example, cfg: PreprocessConfig):
+    """RGB + the Sobel magnitude of the gray depth cast to uint8 (numpy's cast:
+    truncation, and magnitudes above 255 wrap), 3x replicated + > 50 mask."""
     color_raw, mask = _color_and_mask(example)
     instance_map, mapping = _mask_and_mapping(mask)
-    pix = _pixels("map_3channel", color_raw, None, cfg)
+    color = process_image(color_raw, cfg)
+    gm = compute_depth_gradient(_depth_gray(example["image"])).astype(np.uint8)
+    grad3 = np.stack([gm, gm, gm], axis=2)
+    grad = process_image(grad3, cfg)
+    gmask = np.any(_cv2_resize_linear(grad3, output_size(cfg)) > 50, axis=-1).astype(np.float32)[..., None]
     masks, labels = _labels(instance_map, mapping, cfg)
-    return pix, masks, labels
+    return np.concatenate([color, grad, gmask], axis=-1), masks, labels
 
 
-def map_10channel_case2(example, cfg: PreprocessConfig):
-    """Final-model (0.4.0) input: RGB + depth + gradient features of the resized
-    gray depth + validity mask (reference: dataloader.py:386-425)."""
+def map_30channel(example, cfg: PreprocessConfig):
+    """NYU ultra path: RGB + depth + the CSF fusion of 8 augmentation frames
+    (reference: dataloader.py:88-129, nyu_ultra_preprocess :743-759); the
+    example's "image" lists 10 frames."""
     color_raw, mask = _color_and_mask(example)
     instance_map, mapping = _mask_and_mapping(mask)
-    pix = _pixels("map_10channel_case2", color_raw, _depth_rgb(example["image"], 1), cfg)
+    imgs = [_depth_rgb(example["image"], i) for i in range(len(example["image"]))]
+    color = process_image(color_raw, cfg)
+    depth = process_image(imgs[1], cfg)
+    # uint8 in, uint8 out, as the reference (data_process.py:919 casts back)
+    fused = csf_fuse(torch.from_numpy(np.stack(imgs[2:10]))).numpy()
+    fused_p = process_image(fused, cfg)
     masks, labels = _labels(instance_map, mapping, cfg)
-    return pix, masks, labels
+    # The reference loader emits [color, fused, depth] (dataloader.py:115-120)
+    # while the model slices channels 3:6 as "depth" and 6:9 as "fused"
+    # (custom_model.py:357-360): its depth encoder sees the CSF-fused image and
+    # DSAM the raw depth. Kept as the JAX package keeps it.
+    return np.concatenate([color, fused_p, depth], axis=-1), masks, labels
 
 
 MAP_FUNCTIONS: dict[str, Callable] = {
     "map_3channel": map_3channel,
+    "map_6channel": map_6channel,
+    "map_7channel_tmp": map_7channel_tmp,
+    "map_7channel_g": map_7channel_g,
+    "map_7channel_g2": map_7channel_g2,
+    "map_7channel_s": map_7channel_s,
+    "map_7channel_s2": map_7channel_s2,
+    "map_10channel_case1": map_10channel_case1,
     "map_10channel_case2": map_10channel_case2,
+    "map_30channel": map_30channel,
 }

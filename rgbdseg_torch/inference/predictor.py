@@ -8,9 +8,13 @@ port's seeded random initialisation (`utils.weights.init_weights`).
 
 - `predict_example` takes a meta-JSON record of raw frames (PNG paths or uint8
   arrays, `data/registry.py`), ships them to the device as one packed uint8
-  buffer (6 bytes per pixel for 0.4.0, at the frames' own size) and builds the
-  version's channel stack there (`data/device_preprocess.py`), each frame
-  resized from its own size to the target by the exact resizer twins.
+  buffer (3-9 bytes per pixel: rgb, and the depth and gradient frames the
+  layout reads, at the frames' own size) and builds the version's channel
+  stack there (`data/device_preprocess.py`), each frame resized from its own
+  size to the target by the exact resizer twins. The two layouts built on the
+  host only (`map_7channel_g` of 0.0.4, `map_30channel` of 0.2.0, whose record
+  lists 10 frames) take the host map function and `predict_pixels`, as in the
+  JAX package; the choice is by layout, before any launch.
 - `predict_pixels` takes a channel stack (B, H, W, C) already built.
 - `predict_and_overlay_files` serves PNG files (the RGB frame, and the depth
   frame for RGB-D versions) through `predict_example` and overlays the
@@ -28,7 +32,7 @@ import torch
 
 from ..config import ModelConfig, PreprocessConfig
 from ..data import registry as R
-from ..data.device_preprocess import build_pixels, packed_width
+from ..data.device_preprocess import build_pixels, packed_width, supported
 from ..data.image_io import load_rgb, write_png
 from ..data.preprocess import output_size, process_image
 from ..models.mask2former import Mask2FormerRGBD
@@ -80,7 +84,7 @@ class Predictor:
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
-        self.last_upload_bytes = 0  # host-to-device bytes of the last predict_example
+        self.last_upload_bytes = 0  # host-to-device bytes of the last request
 
     @torch.no_grad()
     def _forward(self, pixel_values: torch.Tensor):
@@ -88,7 +92,7 @@ class Predictor:
         return out.class_queries_logits, out.masks_queries_logits
 
     def _forward_raw(self, frames: list[np.ndarray]):
-        """Raw uint8 frames (rgb (H, W, 3) [, depth (h, w, 3)]) -> logits: one
+        """Raw uint8 frames (rgb (H, W, 3) [, depth (h, w, 3) [, gradient]]) -> logits: one
         host-to-device copy of the frames packed end to end, the channels built
         on the device from views of it."""
         packed = torch.from_numpy(np.concatenate([np.ascontiguousarray(f).reshape(-1) for f in frames]))
@@ -98,19 +102,21 @@ class Predictor:
         for f in frames:
             views.append(flat[start : start + f.size].reshape(1, *f.shape))
             start += f.size
-        pix = build_pixels(get_version(self.cfg.version).map_fn, views[0], views[1] if len(views) > 1 else None,
-                           self.preprocess)
+        views += [None] * (3 - len(views))
+        pix = build_pixels(get_version(self.cfg.version).map_fn, views[0], views[1], self.preprocess, views[2])
         return self._forward(pix)
 
     def predict_example(self, example: dict, threshold: float = 0.5) -> dict:
-        """example: meta-JSON record {"image": rgb or [rgb, depth], "annotation":
+        """example: meta-JSON record {"image": rgb or [rgb, depth, ...], "annotation":
         optional}; an installed `registry.TRANSFORM` is applied to the colour
         frame (and the annotation) before packing. Returns the post-processed
         instances at the target size `output_size(preprocess)`."""
+        map_fn = get_version(self.cfg.version).map_fn
+        if not supported(map_fn):
+            pix, _, _ = R.MAP_FUNCTIONS[map_fn](example, self.preprocess)
+            return self.predict_pixels(pix[None], threshold)[0]
         color, _ = R._color_and_mask(example)
-        frames = [color]
-        if packed_width(get_version(self.cfg.version).map_fn) > 3:
-            frames.append(R._depth_rgb(example["image"], 1))
+        frames = [color] + [R._depth_rgb(example["image"], i) for i in range(1, packed_width(map_fn) // 3)]
         cls_logits, mask_logits = self._forward_raw(frames)
         return post_process_instance_segmentation(
             cls_logits, mask_logits, threshold=threshold, target_sizes=[output_size(self.preprocess)],
@@ -119,7 +125,9 @@ class Predictor:
 
     def predict_pixels(self, pixel_values: np.ndarray, threshold: float = 0.5) -> list[dict]:
         """(B, H, W, C) float channel stack -> per-image post-processed instances."""
-        pix = torch.as_tensor(np.ascontiguousarray(pixel_values), dtype=torch.float32).to(self.device)
+        pix = torch.as_tensor(np.ascontiguousarray(pixel_values), dtype=torch.float32)
+        self.last_upload_bytes = pix.numel() * pix.element_size()
+        pix = pix.to(self.device)
         cls_logits, mask_logits = self._forward(pix)
         target_sizes = [tuple(pixel_values.shape[1:3])] * pixel_values.shape[0]
         return post_process_instance_segmentation(

@@ -1,16 +1,29 @@
-"""Depth-fusion modules of version 0.4.0
-(counterpart of `rgbdseg_tpu/models/fusion.py`): the E-DSAM ratio predictor,
-the DSAM module and cascade, and the DGGM residual.
+"""Depth-fusion modules (counterpart of `rgbdseg_tpu/models/fusion.py`):
+- the feature fusers across colour and depth pyramids: `FeatureFuser`, and
+  `SpatialAttention` with `FeatureFuserWithSpatialAttention` (defined by the
+  reference but wired into no version; kept as the JAX package keeps them);
+- the DSAM module and cascade, and its ratio predictors: `RatioPredictor`
+  (over the depth pyramid), `DepthImageRatioPredictor` (a conv net on the
+  depth image, selected by no version but converted by the HF bridge) and the
+  E-DSAM `EnhancedDepthImageRatioPredictor`;
+- `IntrinsicsPredictor` (fx, fy, cx, cy from the gray depth, version 0.0.7);
+- DGGM v1, v2 and v3: `DepthGradientInjection`, `...WithMask`, `...Residual`.
 
 Module boundaries are channels-last (B, H, W, C) like the JAX package; the
 convolutions run NCHW inside. BatchNorm is torch's BatchNorm2d (eps 1e-5): in
 eval mode it normalises with the running statistics; in train mode with the
 batch's (biased variance) and it updates the running statistics with momentum
 0.1 and the unbiased variance. That is what the JAX `TorchBatchNorm`
-reproduces. The JAX package's folding of BN into the conv weights is a TPU
-speed trick that the port does not need. In train mode the ratio predictor's
-MLP applies dropout 0.3 after fc0 and 0.2 after fc1, with masks from the
+reproduces. The JAX package's folding of BN into the conv weights and its
+im2col formulation of the low-channel convolutions (`ops/conv.py`) are TPU
+speed tricks that the port does not need: it runs conv, BN, ReLU. In train
+mode the ratio predictors' MLPs apply dropout (E-DSAM 0.3 after fc0 and 0.2
+after fc1; the depth-image one 0.2 after fc0 and fc1), with masks from the
 caller's generator.
+
+The convolutions that read the input stack (the predictors' first ones) take
+NCHW copies of their channels, as `SwinBackbone` does
+(`models/mask2former.py::standard_layout`).
 """
 
 from __future__ import annotations
@@ -24,7 +37,7 @@ from torch import nn
 from ..ops.depth_decomp import dsam_region_masks, dsam_region_masks_pooled
 from ..ops.image import to_grayscale
 from ..ops.resize import adaptive_avg_pool2d, adaptive_max_pool2d, resize_bilinear, resize_nearest
-from .layers import BatchNorm2d, Conv2d, Linear
+from .layers import BatchNorm2d, Conv2d, Linear, promote
 from .stochastic import Dropout
 
 
@@ -170,4 +183,152 @@ class DepthGradientInjectionResidual(nn.Module):
             gated = resize_bilinear(gradient, size) * resize_nearest(mask, size)
             enh = F.relu(getattr(self, f"enhance{i}")(_nchw(gated)))
             out.append(c + _nhwc(enh))
+        return out
+
+
+def _fuse(conv: nn.Module, parts) -> torch.Tensor:
+    """ReLU(1x1 conv of the channel concatenation of `parts`), channels-last."""
+    return _nhwc(F.relu(conv(_nchw(torch.cat(parts, dim=-1)))))
+
+
+class FeatureFuser(nn.Module):
+    """Per scale: concat(colour, depth) -> 1x1 conv -> ReLU, back to the colour channels."""
+
+    def __init__(self, channels: Sequence[int]):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"fuse{i}", Conv2d(2 * c, c, 1))
+
+    def forward(self, color_maps, depth_maps):
+        assert len(color_maps) == len(depth_maps)
+        return [_fuse(getattr(self, f"fuse{i}"), promote(c, d)) for i, (c, d) in enumerate(zip(color_maps, depth_maps))]
+
+
+class SpatialAttention(nn.Module):
+    """CBAM-style spatial attention: channel mean and max -> 1x1 conv -> sigmoid."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = Conv2d(2, 1, 1)
+
+    def forward(self, x):
+        pooled = torch.cat([x.mean(-1, keepdim=True), x.amax(-1, keepdim=True)], dim=-1)
+        return _nhwc(torch.sigmoid(self.conv(_nchw(pooled))))
+
+
+class FeatureFuserWithSpatialAttention(nn.Module):
+    """`FeatureFuser` on the two maps weighted by a spatial attention of their concatenation."""
+
+    def __init__(self, channels: Sequence[int]):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"spatial_attention{i}", SpatialAttention())
+            self.add_module(f"fuse{i}", Conv2d(2 * c, c, 1))
+
+    def forward(self, color_maps, depth_maps):
+        out = []
+        for i, (c, d) in enumerate(zip(color_maps, depth_maps)):
+            c, d = promote(c, d)
+            attn = getattr(self, f"spatial_attention{i}")(torch.cat([c, d], dim=-1))
+            out.append(_fuse(getattr(self, f"fuse{i}"), promote(c * attn, d * attn)))
+        return out
+
+
+class RatioPredictor(nn.Module):
+    """Global average pool over the 4 depth-pyramid scales -> MLP -> sigmoid scaled to [out_min, out_max]."""
+
+    def __init__(self, channels: Sequence[int], out_min: float = 0.01, out_max: float = 0.5):
+        super().__init__()
+        self.out_min, self.out_max = out_min, out_max
+        self.fc0 = Linear(sum(channels), 64)
+        self.fc1 = Linear(64, 32)
+        self.fc2 = Linear(32, 1)
+
+    def forward(self, depth_maps):
+        x = torch.cat(promote(*(f.mean(dim=(1, 2)) for f in depth_maps)), dim=-1)
+        x = F.relu(self.fc1(F.relu(self.fc0(x))))
+        return self.out_min + (self.out_max - self.out_min) * torch.sigmoid(self.fc2(x))
+
+
+class DepthImageRatioPredictor(nn.Module):
+    """Conv net on the 3-channel depth image -> ratio (reference custom_model.py:1272-1360):
+    three conv-BN-ReLU-maxpool stages, a conv-BN-ReLU, a global mean and an MLP."""
+
+    def __init__(self, in_channels: int = 3, out_min: float = 0.01, out_max: float = 0.5):
+        super().__init__()
+        self.out_min, self.out_max = out_min, out_max
+        widths = (in_channels, 32, 64, 128, 256)
+        for i in range(4):
+            self.add_module(f"conv{i}", Conv2d(widths[i], widths[i + 1], 3, padding=1))
+            self.add_module(f"bn{i}", BatchNorm2d(widths[i + 1], eps=1e-5))
+        self.fc0 = Linear(256, 64)
+        self.dropout0 = Dropout(0.2)
+        self.fc1 = Linear(64, 32)
+        self.dropout1 = Dropout(0.2)
+        self.fc2 = Linear(32, 1)
+
+    def forward(self, depth: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = _nchw(depth).contiguous()
+        for i in range(4):
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            if i < 3:
+                x = F.max_pool2d(x, 2, 2)
+        x = x.mean(dim=(2, 3))
+        x = self.dropout0(F.relu(self.fc0(x)), generator)
+        x = self.dropout1(F.relu(self.fc1(x)), generator)
+        return self.out_min + (self.out_max - self.out_min) * torch.sigmoid(self.fc2(x))
+
+
+class IntrinsicsPredictor(nn.Module):
+    """Gray depth (B, H, W, 1) -> (fx, fy, cx, cy), each (B,) (reference custom_model.py:900-1006):
+    three 3x3 stride-2 conv-ReLUs, a global mean, an MLP; fx, fy = exp, cx, cy =
+    sigmoid scaled to the image's width and height."""
+
+    def __init__(self, in_channels: int = 1):
+        super().__init__()
+        widths = (in_channels, 32, 64, 128)
+        for i in range(3):
+            self.add_module(f"conv{i}", Conv2d(widths[i], widths[i + 1], 3, stride=2, padding=1))
+        self.fc0 = Linear(128, 64)
+        self.fc1 = Linear(64, 32)
+        self.fc2 = Linear(32, 4)
+
+    def forward(self, gray_depth: torch.Tensor):
+        h, w = gray_depth.shape[1:3]
+        x = _nchw(gray_depth).contiguous()
+        for i in range(3):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = F.relu(self.fc1(F.relu(self.fc0(x.mean(dim=(2, 3))))))
+        raw = self.fc2(x)
+        return (torch.exp(raw[:, 0]), torch.exp(raw[:, 1]),
+                torch.sigmoid(raw[:, 2]) * w, torch.sigmoid(raw[:, 3]) * h)
+
+
+class DepthGradientInjection(nn.Module):
+    """DGGM v1: per scale, the bilinear-resized gradient concatenated -> 1x1 conv -> ReLU."""
+
+    def __init__(self, channels: Sequence[int], grad_channels: int = 3):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"fusion{i}", Conv2d(c + grad_channels, c, 1))
+
+    def forward(self, color_maps, gradient):
+        return [_fuse(getattr(self, f"fusion{i}"), promote(c, resize_bilinear(gradient, tuple(c.shape[1:3]))))
+                for i, c in enumerate(color_maps)]
+
+
+class DepthGradientInjectionWithMask(nn.Module):
+    """DGGM v2: v1 with the nearest-resized validity mask as one more channel."""
+
+    def __init__(self, channels: Sequence[int], grad_channels: int = 3):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"fusion{i}", Conv2d(c + grad_channels + 1, c, 1))
+
+    def forward(self, color_maps, gradient, mask):
+        out = []
+        for i, c in enumerate(color_maps):
+            size = tuple(c.shape[1:3])
+            parts = promote(c, resize_bilinear(gradient, size), resize_nearest(mask, size))
+            out.append(_fuse(getattr(self, f"fusion{i}"), parts))
         return out

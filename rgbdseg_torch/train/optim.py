@@ -15,7 +15,12 @@ A parameter without a gradient gets a zero one first: optax still moves its
 moments and decays it, where torch's AdamW would skip it. The E-DSAM ratio
 predictor is such a parameter set (its output only sets depth-window
 thresholds, so no gradient reaches it), and so is the 0.4.0 backbone (both
-fusion branches read detached copies of its maps).
+fusion branches read detached copies of its maps). The one exception is the
+reference-frozen set (`FROZEN_MODULES`): the 0.0.7 intrinsics predictor feeds
+only the detached surface normals, so the reference's torch AdamW, seeing its
+gradients None, skips it (no step, no decay), and the JAX trainer masks its
+updates to zero. Its parameters are left out of the optimizer here; no other
+version has them, so their optimizer state and checkpoints are unchanged.
 
 Each operation runs over all parameters at once (torch's multi-tensor
 `_foreach_*` ops, which round each element as the single-tensor op does): a
@@ -35,7 +40,15 @@ import math
 import numpy as np
 import torch
 
+from ..models.mask2former import INTRINSICS_PREDICTOR
 from .arguments import TrainingArguments
+
+# Modules whose parameters no optimizer step touches (see above).
+FROZEN_MODULES = (INTRINSICS_PREDICTOR,)
+
+
+def is_frozen(name: str) -> bool:
+    return any(part in FROZEN_MODULES for part in name.split("."))
 
 
 def is_decayed(name: str) -> bool:
@@ -77,10 +90,11 @@ def global_norm(tensors) -> torch.Tensor:
 
 class AdamW(torch.optim.Optimizer):
     """clip_by_global_norm(max_grad_norm) then AdamW, as the JAX trainer's optax
-    chain. `step()` returns the global norm of the gradients before clipping."""
+    chain over every parameter outside `FROZEN_MODULES`. `step()` returns the
+    global norm of the gradients before clipping."""
 
     def __init__(self, named_parameters, args: TrainingArguments, total_steps: int):
-        named = list(named_parameters)
+        named = [(n, p) for n, p in named_parameters if not is_frozen(n)]
         groups = [
             {"params": [p for n, p in named if is_decayed(n)], "weight_decay": args.weight_decay},
             {"params": [p for n, p in named if not is_decayed(n)], "weight_decay": 0.0},

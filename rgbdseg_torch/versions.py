@@ -2,7 +2,7 @@
 to fusion architectures.
 
 A copy of `rgbdseg_tpu/versions.py`, kept in the port so that it imports nothing
-of the JAX package. The port builds 0.0.0 and 0.4.0 (see `BUILDABLE`).
+of the JAX package. The port builds every version.
 
 The reference drives both its dataloader and its model construction off a single
 version string (reference: mask2former/utils/dataloader.py:431-537 and
@@ -164,10 +164,6 @@ REGISTRY: dict[str, VersionEntry] = {
         "map_10channel_case2",
     ),
 }
-
-
-# Versions whose model the port builds; the others are queued in ROADMAP.md.
-BUILDABLE = ("0.0.0", "0.4.0")
 
 
 def get(version: str) -> VersionEntry:

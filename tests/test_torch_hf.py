@@ -3,7 +3,8 @@ package, on the CPU (no download, no JAX compile).
 
 - `rgbdseg_torch.utils.safetensors` writes what `safetensors.numpy` reads and
   reads what it writes, byte for byte the same file for the same tensors.
-- `to_flax` of the port's seeded tiny 0.4.0 and 0.0.0 models -> the JAX
+- `to_flax` of the port's seeded tiny 0.4.0, 0.0.0, 0.1.1 and 0.3.0 (dual
+  backbone) and 0.0.7 (intrinsics predictor) models -> the JAX
   package's `export_hf_checkpoint` -> the port's `load_hf_checkpoint` gives the
   port's state_dict back bit for bit; the port's `export_hf_checkpoint` -> the
   JAX `load_hf_checkpoint` gives `to_flax` of the port's weights bit for bit.
@@ -79,7 +80,7 @@ def _port_model(version, num_labels=3, seed=3):
     return cfg, init_weights(Mask2FormerRGBD(cfg), seed)
 
 
-@pytest.mark.parametrize("version", ["0.4.0", "0.0.0"])
+@pytest.mark.parametrize("version", ["0.4.0", "0.0.0", "0.1.1", "0.3.0", "0.0.7"])
 def test_jax_export_loads_into_the_port_bitwise(tmp_path, version):
     cfg, model = _port_model(version)
     sd0 = model.state_dict()
@@ -92,7 +93,7 @@ def test_jax_export_loads_into_the_port_bitwise(tmp_path, version):
         assert sd[k].dtype == v.dtype and torch.equal(sd[k], v), k
 
 
-@pytest.mark.parametrize("version", ["0.4.0", "0.0.0"])
+@pytest.mark.parametrize("version", ["0.4.0", "0.0.0", "0.1.1", "0.3.0", "0.0.7"])
 def test_port_export_loads_into_jax_bitwise(tmp_path, version):
     cfg, model = _port_model(version)
     TH.export_hf_checkpoint(model, cfg, str(tmp_path), ID2LABEL)

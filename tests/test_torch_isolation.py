@@ -136,11 +136,11 @@ def test_cpu_wrappers_take_plain_version_without_launching():
     assert set(LAUNCHES.values()) == {0}
 
 
-@pytest.mark.parametrize("version", ["0.0.0", "0.4.0"])
+@pytest.mark.parametrize("version", sorted(TV.REGISTRY))
 def test_from_flax_loads_strict(version):
     """Every JAX variable maps onto a port parameter or buffer of the same
     shape, and none is missing (shapes from tracing the JAX init, no compile)."""
-    ch = 10 if version == "0.4.0" else 3
+    ch = TV.get(version).channels.total
     shapes = jax.eval_shape(
         JModel(JConfig.tiny(num_labels=3, version=version)).init,
         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, 64, ch), jnp.float32),
@@ -150,7 +150,11 @@ def test_from_flax_loads_strict(version):
     model.load_state_dict(from_flax(v["params"], v.get("batch_stats")), strict=True)
 
 
-@pytest.mark.parametrize("version", sorted(set(TV.REGISTRY) - set(TV.BUILDABLE)))
+@pytest.mark.parametrize("version", sorted(set(TV.REGISTRY) - {"0.0.0", "0.4.0"}))
 def test_unported_versions_raise(version):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Mask2FormerRGBD(ModelConfig.tiny(version=version))
+    """The 13 versions the port once refused now build; like the JAX model,
+    each raises on a stack of another channel count than its layout's."""
+    model = Mask2FormerRGBD(ModelConfig.tiny(version=version))
+    total = TV.get(version).channels.total
+    with pytest.raises(ValueError, match=f"expects {total} channels"):
+        model(torch.zeros(1, 64, 64, total + 1))

@@ -353,7 +353,7 @@ def _batch(x, masks, classes, valid):
 
 def _jax_dtypes(cfg, v, x, train: bool) -> dict:
     """Each JAX module's output dtype under `_cast_bf16`, by abstract evaluation."""
-    variables = {"params": _cast(v["params"]), "batch_stats": v["batch_stats"]}
+    variables = {"params": _cast(v["params"]), "batch_stats": v.get("batch_stats", {})}
     kw = dict(rngs={"dropout": jax.random.PRNGKey(1), "droppath": jax.random.PRNGKey(2)}) if train else {}
     _, state = jax.eval_shape(
         lambda variables, x: JModel(cfg).apply(
@@ -376,17 +376,12 @@ def _jax_dtypes(cfg, v, x, train: bool) -> dict:
     return out
 
 
-@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
-def test_bf16_module_dtypes_equal_jax(tiny_variables, monkeypatch, train):
+def assert_bf16_module_dtypes_equal_jax(cfg, v, model, x, train: bool) -> dict:
     """Under the bf16 policy every module of the port returns the dtype the JAX
-    module of the same name returns: where flax promotes a float32 input
-    meeting bfloat16 parameters, where BatchNorm returns float32 (train) or
-    its folded convolution's dtype (eval)."""
-    cfg, v = tiny_variables
-    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
-    x = _frames(4)
+    module of the same name returns (`cfg`, `v`: the JAX model and its
+    variables; `model`: the port's, with them loaded)."""
     ref = _jax_dtypes(cfg, v, x, train)
-    model = _port_model(v).train(train)
+    model = model.train(train)
     got = {}
 
     def hook(name):
@@ -408,6 +403,18 @@ def test_bf16_module_dtypes_equal_jax(tiny_variables, monkeypatch, train):
     compared = [k for k in ref if k and not any(s in k for s in skip)]
     assert len(compared) > 100
     assert {k: got.get(k) for k in compared} == {k: ref[k] for k in compared}
+    return ref
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_bf16_module_dtypes_equal_jax(tiny_variables, monkeypatch, train):
+    """Under the bf16 policy every module of the port returns the dtype the JAX
+    module of the same name returns: where flax promotes a float32 input
+    meeting bfloat16 parameters, where BatchNorm returns float32 (train) or
+    its folded convolution's dtype (eval)."""
+    cfg, v = tiny_variables
+    monkeypatch.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+    ref = assert_bf16_module_dtypes_equal_jax(cfg, v, _port_model(v), _frames(4), train)
     if train:  # BatchNorm returns float32 in train mode, and flax computes the rest of E-DSAM in it
         assert {"float32", "bfloat16"} <= set(ref.values())
 
