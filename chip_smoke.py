@@ -117,7 +117,25 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      forward and backward, 0.0.7's intrinsics predictor unchanged bit for
      bit; 0.0.7 and 0.1.1 also step 0 against the CPU (on the GPU's attention
      masks, STEP0_SAME_RTOL);
-  18. a `kernels` JSON line; the last line is the device JSON.
+  18. parallel (`run_parallel`): (a) NCCL at world size 1 in this process,
+     one DDP-wrapped step on phase 12's packed batch against the plain step:
+     the weights after DDP's construction, the loss, the BatchNorm statistics
+     and the generator equal bit for bit, DDP's reduce the identity on every
+     gradient, and the gradients, parameters and moments within a second
+     plain step's spread (K1's backward atomics); then one process at batch 2
+     as the reference and two child processes sharing the card over Gloo
+     (`--parallel-child`, internal): (b) dp=2 at batch 1 per rank and (c)
+     dp=1 x mp=2 at 4 heads, each against the reference on its attention
+     masks and assignments (each rank's own flips counted) to phase 7's bounds,
+     BatchNorm statistics 1e-5, both ranks' parameters equal bit for bit, 6 +
+     9 launches forward and backward per rank, the step ms and the time in
+     collectives; (d) `Trainer.evaluate` over phase 10's 8 examples in the two
+     processes against one: metric keys equal, mAP within 1e-6, loss within
+     1e-5, the device-stats path taken; (e) the QA viewers on the card against
+     the CPU, their PNGs read back; then K1, K3 and both backward kernels at 4
+     heads against their plain versions, timed (phases 3 and 5 at 4 heads);
+  19. a `kernels` JSON line (its launches include phase 18's, the children's
+     summed); the last line is the device JSON.
 With --profile, phases 4, 6 and 13 also profile one request, one train step
 and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
 busy share and the kernels that take the most device time.
@@ -209,6 +227,7 @@ EVAL_N, EVAL_B = 8, 2  # eval examples and batch
 LEVELS = ((15, 20), (30, 40), (60, 80))  # deformable levels at 480x640
 KEYS = (300, 1200, 4800)  # masked cross-attention keys at 480x640
 NH, L, P, HD, NQ = 8, 6300, 4, 32, 100  # heads, queries (all levels' pixels), points
+MODEL_NH = NH  # the model's heads; phase 18c times the kernels at one rank's share of them
 
 
 def log(msg: str) -> None:
@@ -258,10 +277,11 @@ def _timed(fn):
     """(fn(), wall ms) with the device synchronised on both sides."""
     import torch
 
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, (time.perf_counter() - t) * 1e3
 
 
@@ -284,7 +304,7 @@ def k1_inputs(rng, dev, geometry: str, b: int = 1):
 
     value = torch.from_numpy(rng.randn(b, L, NH, HD).astype(np.float32)).to(dev)
     if geometry == "model":
-        loc = initial_locations(LEVELS, NH, P, dev).expand(b, -1, -1, -1, -1, -1).contiguous()
+        loc = initial_locations(LEVELS, MODEL_NH, P, dev)[:, :, :NH].expand(b, -1, -1, -1, -1, -1).contiguous()
         weights = torch.full((b, L, NH, len(LEVELS), P), 1.0 / (len(LEVELS) * P), device=dev)
     elif geometry == "spread":
         ref = reference_points_for_shapes(LEVELS, dev)[None, :, None, :].expand(b, -1, len(LEVELS), 2)
@@ -341,9 +361,9 @@ def k1_bwd_cells(loc) -> int:
 def mca_inputs(rng, nk, dev, b: int = 1):
     import torch
 
-    q = rng.randn(b, 8, NQ, HD).astype(np.float32) * HD**-0.5
-    k = rng.randn(b, 8, nk, HD).astype(np.float32)
-    v = rng.randn(b, 8, nk, HD).astype(np.float32)
+    q = rng.randn(b, NH, NQ, HD).astype(np.float32) * HD**-0.5
+    k = rng.randn(b, NH, nk, HD).astype(np.float32)
+    v = rng.randn(b, NH, nk, HD).astype(np.float32)
     m = rng.randn(b, NQ, nk).astype(np.float32)
     m[:, 0] = -np.abs(m[:, 0]) - 0.1  # an all-blocked row: exempted, attends to every key
     ab = np.all(m < 0.0, axis=-1)
@@ -1221,12 +1241,13 @@ def eval_batches(rng, n: int = EVAL_N, b: int = EVAL_B):
     return batches
 
 
-def run_eval(rng, pred) -> None:
+def run_eval(rng, pred) -> list:
     """Phase 10: `train.trainer.evaluate` on the card over EVAL_N examples in
     batches of EVAL_B (raw frames built on the card, packed GT), by the
     device-stats path and by the host mask path: the metric dicts must be
     identical. Then `eval_stats` of one batch's logits on the card and on the
-    CPU: labels and counts equal, scores within 1e-6 relative."""
+    CPU: labels and counts equal, scores within 1e-6 relative. Returns the
+    batches (phase 18 evaluates them again in two processes)."""
     import os
 
     import torch
@@ -1302,6 +1323,7 @@ def run_eval(rng, pred) -> None:
                 stages[k].append(t)
     log(f"eval stages ms, one batch of {EVAL_B} (median of 3): "
         + ", ".join(f"{k} {sorted(v)[1]:.2f}" for k, v in stages.items()))
+    return batches
 
 
 class EvalSet:
@@ -2064,12 +2086,553 @@ def run_versions(seed: int, rng) -> None:
         train_version(seed, rng, version)
 
 
+# The parallel phase (18). The card's machine has one H100 and NCCL refuses
+# two ranks on one device, so the NCCL path runs at world size 1 and the
+# two-rank paths run as two processes sharing the card over Gloo, which carries
+# all_reduce and broadcast for CUDA tensors: all that DDP, the Megatron pairing
+# and the port's gathers use.
+PARALLEL_TIMEOUT_S = 400  # the two child processes together
+# Two processes against one at the global batch: phase 7's bounds (loss,
+# gradient norm, worst kernel-fed leaf, relative) and the BatchNorm running
+# statistics (absolute; they are O(1)). The eval: the loss relative, every
+# mAP key within PARALLEL_MAP_TOL.
+PARALLEL_BN_TOL, PARALLEL_EVAL_RTOL, PARALLEL_MAP_TOL = 1e-5, 1e-5, 1e-6
+TP_HEADS = MODEL_NH // 2  # one rank's heads under model_parallel_size 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class BatchSet:
+    """Eval batches as the dataset `Trainer.evaluate` reads: `batches(b)` yields
+    them in their order (b must be their size), `preprocess` the 480x640 one."""
+
+    def __init__(self, batches):
+        from rgbdseg_torch.config import PreprocessConfig
+
+        self.stored, self.preprocess, self.pack_gt = batches, PreprocessConfig(height=480, width=640), True
+
+    def __len__(self):
+        return sum(b.pixel_values.shape[0] for b in self.stored)
+
+    def batches(self, batch_size, num_workers=0, **_):
+        if any(b.pixel_values.shape[0] != batch_size for b in self.stored):
+            raise ValueError(f"BatchSet holds batches of {self.stored[0].pixel_values.shape[0]}, not {batch_size}")
+        return iter(self.stored)
+
+
+def _parallel_args(**kw):
+    from rgbdseg_torch.train.arguments import TrainingArguments
+
+    # Eval without target compaction on both sides: it is single-process only,
+    # and its slot count would change the shapes of the loss's point draws.
+    return TrainingArguments(learning_rate=1e-4, weight_decay=0.05, compact_instances=False, **kw)
+
+
+def _step_record(model, net, opt, batch, gen, pp, leaves, mesh=None, probe=lambda: (0, 0.0)) -> dict:
+    """One micro_step + apply_step of `net`: loss, gradient norm, the kernel-fed
+    gradients (a shard's gathered to its full tensor), BatchNorm statistics,
+    launches, micro-step and apply ms, and the step's share of `probe()`'s
+    running (calls, ms) of blocking collectives (the gathers here left out)."""
+    import torch
+
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.parallel.sharding import gather_shard
+    from rgbdseg_torch.train.trainer import apply_step, micro_step
+
+    K.reset_launches()
+    c0 = probe()
+    (loss, _), t_micro = _timed(lambda: micro_step(net, opt, batch, gen, pp))
+    c1 = probe()
+    launches = dict(K.LAUNCHES)
+    params = dict(model.named_parameters())
+    shards = getattr(model, "tp_shards", {})
+    grads = {n: (params[n].grad if n not in shards else gather_shard(params[n].grad, shards[n], mesh)).cpu()
+             for n in leaves if params[n].grad is not None}
+    bn = {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if "running_" in k}
+    c2 = probe()
+    norm, t_apply = _timed(lambda: apply_step(opt, 1))
+    c3 = probe()
+    return {"loss": loss.item(), "norm": norm.item(), "grads": grads, "bn": bn, "launches": launches,
+            "ms": (t_micro, t_apply), "rng": gen.get_state().cpu(),
+            "collectives": (c1[0] - c0[0] + c3[0] - c2[0], c1[1] - c0[1] + c3[1] - c2[1])}
+
+
+def _recording_matcher(record: list, given=None, rows=slice(None)):
+    """A stand-in for the criterion's `hungarian_batch`: it records each call's
+    assignment (num_layers, B, T) and, with `given`, returns the given one's rows."""
+    import torch
+
+    from rgbdseg_torch.ops import matcher
+
+    def hungarian(cost):
+        own = matcher.hungarian_batch(cost)
+        record.append(own.cpu())
+        if given is None:
+            return own
+        return given[len(record) - 1][:, rows].to(own.device)
+
+    return hungarian
+
+
+def run_parallel_nccl(seed: int, step0, batch, pp, cfg, device: str = "cuda", backend: str = "nccl",
+                      card: str = "") -> dict:
+    """Phase 18a: NCCL at world size 1, in this process (a TCP store on
+    localhost): `make_mesh(1)` and one DDP-wrapped full-width 0.4.0 optimizer
+    step on phase 12's packed batch, against the plain step from the same
+    weights and generator seed. Bit for bit: the parameters after DDP's
+    construction, the loss, the BatchNorm statistics, the generator's state,
+    and DDP's reduced gradients against the bucket's local ones (DDP divides by
+    1). K1's backward adds d value with float atomics in an order that changes
+    from run to run, so the gradients, and the parameters and moments after the
+    update, are compared with a second plain step's spread: equal bit for bit
+    where two plain steps are. Returns the DDP step's launches."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+    from rgbdseg_torch.parallel.mesh import make_mesh
+    from rgbdseg_torch.train.trainer import distribute, make_optimizer
+
+    base = Mask2FormerRGBD(cfg)
+    base.load_state_dict(step0)
+    base.to(device).train()
+    args = _parallel_args(per_device_train_batch_size=TRAIN_B)
+    everything = [n for n, _ in base.named_parameters()]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device=device)
+        runs = {}
+        for label in ("plain", "ddp", "plain again"):
+            model = copy.deepcopy(base)
+            net, local = model, {}
+            if label == "ddp":
+                net, _ = distribute(model, mesh, ddp=True)
+                if not all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), base.state_dict().values())):
+                    raise AssertionError("DDP's construction changed the weights at world size 1")
+
+                def keep_local(state, bucket):  # the bucket's gradients before the reduce
+                    local.update({id(p): g.clone() for p, g in zip(bucket.parameters(), bucket.gradients())})
+                    return default_hooks.allreduce_hook(mesh.data_group, bucket)
+
+                net.register_comm_hook(None, keep_local)
+            opt = make_optimizer(model, args, 8)
+            names = {n: id(p) for n, p in model.named_parameters()}
+            rec = _step_record(model, net, opt, batch, torch.Generator(device=device).manual_seed(seed), pp,
+                               everything)
+            if label == "ddp":
+                same = sum(torch.equal(g, local[names[n]].cpu()) for n, g in rec["grads"].items())
+                if same != len(rec["grads"]):
+                    raise AssertionError(f"DDP's reduce at world size 1 changed {len(rec['grads']) - same} of "
+                                         f"{len(rec['grads'])} gradients")
+                rec["reduce_identity"] = same
+            rec["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            rec["moments"] = opt.state_dict()["state"]
+            runs[label] = rec
+    finally:
+        dist.destroy_process_group()
+    plain, ddp, again = runs["plain"], runs["ddp"], runs["plain again"]
+
+    def spread(a, b):
+        """(tensors that differ, the largest relative difference); the names must agree."""
+        if set(a) != set(b):
+            raise AssertionError(f"parallel (a): {len(set(a) ^ set(b))} names differ between the runs")
+        diff = [((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30)).item() for n in b]
+        return sum(d > 0 for d in diff), max(diff)
+
+    exact = {"loss": ddp["loss"] == plain["loss"], "rng": torch.equal(ddp["rng"], plain["rng"]),
+             "bn": all(torch.equal(ddp["bn"][k], v) for k, v in plain["bn"].items())}
+    g_ddp, g_again = spread(ddp["grads"], plain["grads"]), spread(again["grads"], plain["grads"])
+    p_ddp, p_again = spread(ddp["params"], plain["params"]), spread(again["params"], plain["params"])
+    moments = lambda r: {f"{n}.{k}": v for n, st in r["moments"].items() for k, v in st.items()}  # noqa: E731
+    m_ddp, m_again = spread(moments(ddp), moments(plain)), spread(moments(again), moments(plain))
+    log(f"parallel (a) {backend} world size 1, DDP step vs plain step: loss {ddp['loss']:.7f} / {plain['loss']:.7f}, "
+        f"bitwise loss {exact['loss']}, generator {exact['rng']}, BatchNorm statistics {exact['bn']}; DDP's reduce "
+        f"left {ddp['reduce_identity']} bucket gradients bit for bit; gradient leaves that differ (max rel): DDP "
+        f"{g_ddp[0]} ({g_ddp[1]:.2e}), a second plain step {g_again[0]} ({g_again[1]:.2e}); parameters DDP "
+        f"{p_ddp[0]} ({p_ddp[1]:.2e}) / plain {p_again[0]} ({p_again[1]:.2e}); moments DDP {m_ddp[0]} "
+        f"({m_ddp[1]:.2e}) / plain {m_again[0]} ({m_again[1]:.2e}); step ms (micro + apply) DDP "
+        f"{ddp['ms'][0]:.2f} + {ddp['ms'][1]:.2f}, plain {plain['ms'][0]:.2f} + {plain['ms'][1]:.2f} [{card}]")
+    if not all(exact.values()):
+        raise AssertionError(f"DDP at world size 1 is not the plain step: {exact}")
+    for what, (d, _), (a, a_rel) in (("gradients", g_ddp, g_again), ("parameters", p_ddp, p_again),
+                                     ("moments", m_ddp, m_again)):
+        if a == 0 and d:
+            raise AssertionError(f"{what}: two plain steps agree bit for bit, DDP's differs in {d}")
+    if g_ddp[1] > max(10 * g_again[1], 0.0) and g_again[0]:
+        raise AssertionError(f"DDP's gradients differ from the plain step's by {g_ddp[1]}, 10 x a plain step's "
+                             f"{g_again[1]}")
+    return ddp["launches"]
+
+
+def parallel_reference(seed: int, step0, batch, pp, cfg, device: str = "cuda") -> dict:
+    """The one-process step of phases 18b and 18c at the global batch (2), from
+    phase 12's step-0 weights, generator seed and packed batch: its loss, norm,
+    kernel-fed gradients, BatchNorm statistics, and the decoder's attention
+    masks and the matcher's assignments, which the two-process runs take as
+    their own (the shared decisions)."""
+    import torch
+
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+    from rgbdseg_torch.ops import losses
+    from rgbdseg_torch.train.trainer import make_optimizer
+
+    model = Mask2FormerRGBD(cfg)
+    model.load_state_dict(step0)
+    model.to(device).train()
+    masks, assignments = [], []
+    model.transformer_module.mask_predictor.register_forward_hook(mask_hook(masks))
+    original = losses.hungarian_batch
+    losses.hungarian_batch = _recording_matcher(assignments)
+    try:
+        rec = _step_record(model, model, make_optimizer(model, _parallel_args(per_device_train_batch_size=TRAIN_B), 8),
+                           batch, torch.Generator(device=device).manual_seed(seed), pp, kernel_fed_leaves(cfg))
+    finally:
+        losses.hungarian_batch = original
+    rec.update(masks=masks, assignments=assignments)
+    return rec
+
+
+def parallel_child(work: Path, seed: int) -> int:
+    """The child process of phase 18 (one of two sharing the card, Gloo): (b)
+    dp=2, batch 1 per rank; (c) dp=1 x mp=2, the whole batch on each rank at 4
+    heads; (d) `Trainer.evaluate` at a global batch of 2. The model's config,
+    the device, the batch, the shared decisions and the eval batches come from
+    `work`/reference.pt; it writes its readings to child{rank}.pt there."""
+    import logging
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.models import pixel_decoder, transformer_decoder
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops import losses
+    from rgbdseg_torch.parallel.mesh import make_mesh
+    from rgbdseg_torch.parallel.multihost import host_row_range, initialize
+    from rgbdseg_torch.parallel.sharding import full_state_dict
+    from rgbdseg_torch.train.trainer import TrainBatch, Trainer, distribute, make_optimizer
+    from rgbdseg_torch.utils.weights import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(work / "reference.pt", weights_only=False)
+    cfg, device = ModelConfig.from_json(ref["cfg"]), ref["device"]
+    initialize(backend="gloo", device=device)
+    rank = dist.get_rank()
+    pp = BatchSet([]).preprocess
+
+    # Time inside collectives: the blocking all-reduces on the host clock (the
+    # model's, the loss's, the norm's; waiting for the other rank included), and
+    # DDP's bucket all-reduces from issue to completion (they overlap the backward).
+    sync_ms, bucket_ms = [], []
+    original_all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*a, **kw):
+        if kw.get("async_op"):
+            return original_all_reduce(*a, **kw)
+        t = time.perf_counter()
+        out = original_all_reduce(*a, **kw)
+        sync_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    heads = set()
+
+    def heads_of(fn, axis):
+        def wrapped(*a, **kw):
+            heads.add((fn.__name__, a[0].shape[axis]))
+            return fn(*a, **kw)
+
+        return wrapped
+
+    results = {"rank": rank}
+    for key, model_parallel in (("dp", 1), ("tp", 2)):
+        mesh = make_mesh(2, model_parallel, device=device)
+        model = init_weights(Mask2FormerRGBD(cfg), seed).to(mesh.device).train()
+        net, blocks = distribute(model, mesh)
+        if key == "dp":
+            def timed_hook(state, bucket):
+                t = time.perf_counter()
+                return default_hooks.allreduce_hook(mesh.data_group, bucket).then(
+                    lambda f: (bucket_ms.append((time.perf_counter() - t) * 1e3), f.value())[1])
+
+            net.register_comm_hook(None, timed_hook)
+        start, stop = host_row_range(TRAIN_B, mesh)
+        batch = TrainBatch(*(t[start:stop].to(mesh.device) for t in ref["batch"]))
+        own, assignments = [], []
+        model.transformer_module.mask_predictor.register_forward_hook(
+            mask_hook(own, [(m[start:stop], b[start:stop]) for m, b in ref["masks"]]))
+        opt = make_optimizer(model, _parallel_args(per_device_train_batch_size=stop - start,
+                                                   model_parallel_size=model_parallel), 8, mesh.data_width)
+        bucket_ms.clear()
+        heads.clear()
+        patched = (losses.hungarian_batch, pixel_decoder.deform_sample_levels,
+                   transformer_decoder.masked_cross_attention)
+        losses.hungarian_batch = _recording_matcher(assignments, ref["assignments"], slice(start, stop))
+        pixel_decoder.deform_sample_levels = heads_of(patched[1], 2)
+        transformer_decoder.masked_cross_attention = heads_of(patched[2], 1)
+        try:
+            dist.barrier()
+            rec = _step_record(model, net, opt, batch, torch.Generator(device=mesh.device).manual_seed(seed), pp,
+                               kernel_fed_leaves(cfg), mesh, lambda: (len(sync_ms), sum(sync_ms)))
+        finally:
+            losses.hungarian_batch, pixel_decoder.deform_sample_levels, \
+                transformer_decoder.masked_cross_attention = patched
+        mask_flips = sum((((ga < 0) & ~gb[..., None]) != ((ca < 0) & ~cb[..., None])).sum().item()
+                         for (ga, gb), (ca, cb) in zip([(m[start:stop], b[start:stop]) for m, b in ref["masks"]][:-1],
+                                                       own[:-1]))
+        assign_flips = sum((a != g[:, start:stop]).sum().item() for a, g in zip(assignments, ref["assignments"]))
+        flat = torch.cat([v.float().flatten() for v in full_state_dict(model).values()])
+        theirs = flat.clone()
+        dist.broadcast(theirs, src=0)
+        rec.update(blocks=blocks, heads=sorted(heads), mask_flips=mask_flips, assign_flips=assign_flips,
+                   rows=(start, stop), differ_from_rank0=int((theirs != flat).sum().item()),
+                   bucket_ms=(len(bucket_ms), sum(bucket_ms)))
+        results[key] = rec
+        del net, model, opt
+        torch.cuda.empty_cache()
+
+    # (d) eval: a Trainer over the eval examples at a global batch of 2 (1 per rank).
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Keep(logging.INFO)
+    trainer_log = logging.getLogger("rgbdseg_torch.train.trainer")
+    trainer_log.addHandler(handler)
+    trainer_log.setLevel(logging.INFO)
+    trainer = Trainer(cfg, _parallel_args(num_devices=2, per_device_eval_batch_size=EVAL_B // 2, seed=seed,
+                                          output_dir=str(work / f"eval{rank}")),
+                      None, BatchSet(ref["eval"]), {i: f"class{i}" for i in range(cfg.num_labels)}, device=device)
+    K.reset_launches()
+    sync_ms.clear()
+    metrics, ms = _timed(trainer.evaluate)
+    trainer_log.removeHandler(handler)
+    results["eval"] = {"metrics": metrics, "ms": ms, "launches": dict(K.LAUNCHES),
+                       "lines": [ln for ln in lines if "device-stats path" in ln],
+                       "sync_ms": (len(sync_ms), sum(sync_ms))}
+    dist.all_reduce = original_all_reduce
+    torch.save(results, work / f"child{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel(seed: int, rng, step0, batch, eval_batches_, repo: Path, device: str = "cuda",
+                 backend: str = "nccl", card: str = "") -> dict:
+    """Phase 18: data and tensor parallelism on the card. (a) NCCL at world size
+    1 (`run_parallel_nccl`); then the one-process reference at the global batch
+    and two child processes sharing the card over Gloo (`parallel_child`): (b)
+    dp=2 and (c) dp=1 x mp=2 against the reference, to phase 7's bounds, on the
+    reference's attention masks and assignments (the flips of each rank's own
+    counted and printed), both ranks' parameters equal bit for bit, (c) with K1
+    and K3 forward and backward at 4 heads; (d) `Trainer.evaluate` in the two
+    processes against one: the metric keys, every mAP within PARALLEL_MAP_TOL,
+    the loss within PARALLEL_EVAL_RTOL, the device-stats path taken; then the
+    four kernels at 4 heads against their plain versions, timed (phases 3 and 5
+    at TP_HEADS). Returns the launches of the steps and evals run here, the
+    children's summed. `device` and `backend` are the card's and NCCL; the
+    children share the card (`cuda:0`, LOCAL_RANK 0) over Gloo. `card` (its
+    name and power limit) closes every line of readings."""
+    import os
+    import shutil
+    import subprocess
+
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.train.trainer import Trainer
+
+    global NH
+    pp = PreprocessConfig(height=480, width=640)
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    launches = run_parallel_nccl(seed, step0, batch, pp, cfg, device, backend, card)
+    work = repo / "build" / "chip_smoke" / "parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ref, t_ref = _timed(lambda: parallel_reference(seed, step0, batch, pp, cfg, device))
+    child_device = "cuda:0" if torch.device(device).type == "cuda" else device
+    torch.save({"batch": [t.cpu() for t in batch], "masks": ref["masks"], "assignments": ref["assignments"],
+                "eval": eval_batches_, "cfg": cfg.to_json(), "device": child_device}, work / "reference.pt")
+
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        logs.append(open(work / f"child{rank}.log", "w"))
+        procs.append(subprocess.Popen([sys.executable, str(repo / "chip_smoke.py"), "--parallel-child", str(work),
+                                       "--seed", str(seed)], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+
+    # The reference eval runs while the children start.
+    trainer = Trainer(cfg, _parallel_args(per_device_eval_batch_size=EVAL_B, seed=seed,
+                                          output_dir=str(work / "eval")),
+                      None, BatchSet(eval_batches_), {i: f"class{i}" for i in range(cfg.num_labels)}, device=device)
+    K.reset_launches()
+    ref_metrics, t_eval = _timed(trainer.evaluate)
+    for k, v in K.LAUNCHES.items():
+        launches[k] += v
+    del trainer
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    t_children = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- child {r} (exit {procs[r].returncode}):\n"
+                          + (work / f"child{r}.log").read_text()[-3000:] for r in failed)
+        raise AssertionError(f"parallel: child process(es) {failed} failed\n{tails}")
+    kids = [torch.load(work / f"child{r}.pt", weights_only=False) for r in range(2)]
+    log(f"parallel: the one-process reference step {t_ref:.1f} ms, eval {t_eval:.1f} ms; two children "
+        f"{t_children:.1f} s from spawn to exit (imports, CUDA context, 3 full-width model builds each) [{card}]")
+
+    for label, key in (("(b) dp=2, batch 1 per rank", "dp"), ("(c) dp=1 x mp=2, batch 2 per rank", "tp")):
+        for kid in kids:
+            r = kid[key]
+            leaf = {n: ((r["grads"][n] - g).abs().max() / g.abs().max()).nan_to_num(float("inf")).item()
+                    for n, g in ref["grads"].items()}
+            worst = max(leaf, key=leaf.get)
+            got = (abs(r["loss"] - ref["loss"]) / abs(ref["loss"]), abs(r["norm"] - ref["norm"]) / abs(ref["norm"]),
+                   leaf[worst])
+            bn = max((r["bn"][k] - v).abs().max().item() for k, v in ref["bn"].items())
+            log(f"parallel {label}, rank {kid['rank']} (rows {r['rows']}): loss {r['loss']:.7f} / {ref['loss']:.7f} "
+                f"(rel {got[0]:.2e}), grad norm {r['norm']:.6f} / {ref['norm']:.6f} (rel {got[1]:.2e}), worst "
+                f"kernel-fed leaf {got[2]:.2e} ({worst}), BatchNorm statistics max |diff| {bn:.2e}; own attention-"
+                f"mask entries that differ from the shared ones {r['mask_flips']}, assignments {r['assign_flips']}; "
+                f"parameters differing from rank 0: {r['differ_from_rank0']}; step ms micro {r['ms'][0]:.2f} + "
+                f"apply {r['ms'][1]:.2f}; blocking collectives {r['collectives'][0]} calls {r['collectives'][1]:.2f} ms, "
+                f"DDP buckets {r['bucket_ms'][0]} ({r['bucket_ms'][1]:.2f} ms issue to completion, overlapping the "
+                f"backward); launches {r['launches']}; kernel heads {r['heads']} [{card}]")
+            if not all(x <= tol for x, tol in zip(got, STEP0_SAME_RTOL)) or not bn <= PARALLEL_BN_TOL:
+                raise AssertionError(f"parallel {label} rank {kid['rank']}: {got} > {STEP0_SAME_RTOL} or BatchNorm "
+                                     f"{bn} > {PARALLEL_BN_TOL}")
+            if r["differ_from_rank0"]:
+                raise AssertionError(f"parallel {label}: rank {kid['rank']}'s parameters differ from rank 0's")
+            if r["launches"] != TRAIN_LAUNCHES:
+                raise AssertionError(f"parallel {label}: launches {r['launches']}, expected {TRAIN_LAUNCHES}")
+            want_heads = NH if key == "dp" else TP_HEADS
+            if {h for _, h in r["heads"]} != {want_heads}:
+                raise AssertionError(f"parallel {label}: the kernels ran at heads {r['heads']}, not {want_heads}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+        if key == "tp":
+            log(f"parallel (c): {len(kids[0]['tp']['blocks'])} blocks sharded over the model group: "
+                + ", ".join(kids[0]["tp"]["blocks"]))
+
+    keys = lambda m: {k for k in m if not k.endswith(("runtime", "samples_per_second"))}  # noqa: E731
+    for kid in kids:
+        e = kid["eval"]
+        got = e["metrics"]
+        if keys(got) != keys(ref_metrics):
+            raise AssertionError(f"parallel (d): metric keys differ: {sorted(keys(got) ^ keys(ref_metrics))}")
+        loss_rel = abs(got["eval_loss"] - ref_metrics["eval_loss"]) / abs(ref_metrics["eval_loss"])
+        maps = {k: abs(got[k] - ref_metrics[k]) for k in keys(got) if k != "eval_loss"}
+        log(f"parallel (d) eval, rank {kid['rank']}: {len(keys(got))} metric keys, eval_loss {got['eval_loss']:.7f} "
+            f"/ {ref_metrics['eval_loss']:.7f} (rel {loss_rel:.2e}), mAP keys equal bit for bit "
+            f"{sum(d == 0 for d in maps.values())} of {len(maps)} (max |diff| {max(maps.values()):.2e}), eval_map "
+            f"{got['eval_map']:.6f}; {e['ms']:.1f} ms ({ref_metrics['eval_runtime'] * 1e3:.1f} in one process, "
+            f"{t_eval:.1f} with its set-up); blocking collectives {e['sync_ms'][0]} calls {e['sync_ms'][1]:.2f} ms; "
+            f"launches {e['launches']}; {e['lines'][:1]} [{card}]")
+        if not loss_rel <= PARALLEL_EVAL_RTOL or max(maps.values()) > PARALLEL_MAP_TOL or not e["lines"]:
+            raise AssertionError(f"parallel (d) rank {kid['rank']}: loss {loss_rel}, mAP {max(maps.values())}, "
+                                 f"device-stats path {bool(e['lines'])}")
+        for k, v in e["launches"].items():
+            launches[k] += v
+
+    run_qa_viewers(rng, repo / "build" / "chip_smoke" / "qa", device, card)
+    log(f"parallel (c): the four kernels at {TP_HEADS} heads (one rank's share under model_parallel_size 2) "
+        f"[{card}]:")
+    NH = TP_HEADS
+    try:
+        check_kernels(rng, torch.device(device))
+        check_backward_kernels(rng, torch.device(device))
+    finally:
+        NH = MODEL_NH
+    return launches
+
+
+def run_qa_viewers(rng, out_dir: Path, device: str = "cuda", card: str = "") -> None:
+    """Phase 18e: the QA viewers on the card (`tools/qa_viewers.py`):
+    `csf_viewer` over 8 480x640 three-channel frames and the histogram and
+    region viewers of a 480x640 depth plane, against the same viewers on the
+    CPU. The DSAM intermediates must be equal bit for bit; CSF's similarities
+    within 1e-6, and its discrete outputs (each round's source per pixel) are
+    counted where they differ: with none, every CSF intermediate must be equal
+    bit for bit. The PNGs are read back at their expected sizes."""
+    import shutil
+
+    from rgbdseg_torch.data.image_io import read_png
+    from rgbdseg_torch.tools import qa_viewers as Q
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    _, depth, _ = synthetic_frame(rng)
+    frames = np.stack([np.clip(depth_rgb(depth).astype(np.int16) + rng.randint(-24, 25, (480, 640, 3)), 0, 255)
+                       for _ in range(8)]).astype(np.uint8)
+    depth = depth.astype(np.float32)
+    views = {}
+    for name, fn in (("csf", lambda dev, save: Q.csf_viewer(frames, save=save, device=dev)),
+                     ("histogram", lambda dev, save: Q.dsam_histogram_viewer(depth, save=save, device=dev)),
+                     ("regions", lambda dev, save: Q.dsam_region_viewer(depth, save=save, device=dev))):
+        gpu, t_gpu = _timed(lambda: fn(device, str(out_dir / f"{name}.png")))
+        t = time.perf_counter()
+        cpu = fn("cpu", None)
+        views[name] = (gpu, cpu, t_gpu, (time.perf_counter() - t) * 1e3)
+    gpu, cpu, _, _ = views["csf"]
+    flips = int((gpu["best"] != cpu["best"]).sum())
+    finite = np.isfinite(cpu["sim"])  # the diagonal is -inf on both
+    diff = np.subtract(gpu["sim"], cpu["sim"], out=np.zeros_like(cpu["sim"]), where=finite)
+    sim_err = float(np.abs(diff).max()) if np.array_equal(np.isfinite(gpu["sim"]), finite) else float("inf")
+    csf_equal = {k: bool(np.array_equal(gpu[k], cpu[k])) for k in ("sim", "best", "round_images", "counts", "scores",
+                                                                     "weights", "fused", "image")}
+    dsam_equal = {f"{name}.{k}": bool(np.array_equal(views[name][0][k], views[name][1][k]))
+                  for name in ("histogram", "regions") for k in views[name][1]}
+    sizes = {name: read_png(str(out_dir / f"{name}.png")).shape for name in views}
+    want = {"csf": (8 * (480 + Q.GAP) - Q.GAP, 9 * (640 + Q.GAP) - Q.GAP, 3), "histogram": (200, 512, 3),
+            "regions": (480, (views["regions"][0]["masks"].shape[0] + 1) * (640 + Q.GAP) - Q.GAP, 3)}
+    log(f"qa viewers (e): card vs CPU, CSF bit for bit {csf_equal}, similarity max |diff| {sim_err:.2e}, "
+        f"{flips} of {gpu['best'].size} source pixels differ; DSAM all equal {all(dsam_equal.values())} "
+        f"({len(dsam_equal)} arrays), {int(views['histogram'][0]['valid'].sum())} modes; PNG sizes {sizes}; ms on the "
+        f"card with the PNG (CPU without): " + ", ".join(f"{n} {v[2]:.1f} ({v[3]:.1f})" for n, v in views.items())
+        + f" [{card}]")
+    if sizes != want:
+        raise AssertionError(f"qa viewers: PNG sizes {sizes}, expected {want}")
+    if not all(dsam_equal.values()) or not sim_err <= 1e-6 or flips > 1e-4 * gpu["best"].size or (
+            not flips and not all(csf_equal.values())):
+        raise AssertionError(f"qa viewers: card and CPU differ: {csf_equal}, {dsam_equal}, sim {sim_err}, "
+                             f"{flips} source flips")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one request, one train step and one bf16 and one float32 step: device busy "
                          "share and the top kernels")
+    ap.add_argument("--parallel-child", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     repo = Path(__file__).resolve().parent
@@ -2079,10 +2642,12 @@ def main(argv=None) -> int:
         return 1
     import torch
 
+    sys.path.insert(0, str(repo))
+    if args.parallel_child is not None:  # phase 18's child process; its parent checked the card
+        return parallel_child(args.parallel_child, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(repo))
     from rgbdseg_torch.ops import kernels as K
 
     smi = subprocess.run(
@@ -2107,10 +2672,12 @@ def main(argv=None) -> int:
     train_launches, step0, batch = run_train(args.seed, rng, args.profile)
     step0_gpu_vs_cpu(step0, batch)
     for label, phase in (("builder", lambda: check_builder(rng, dev)),
-                         ("frame requests", lambda: run_frame_requests(rng, pred)),
-                         ("eval", lambda: run_eval(rng, pred)),
-                         ("predict surface", lambda: run_predict_surface(rng, pred, repo / "build" / "chip_smoke"))):
+                         ("frame requests", lambda: run_frame_requests(rng, pred))):
         log(f"{label}: phase took {_timed(phase)[1] / 1e3:.1f} s")
+    eval_set, t_eval = _timed(lambda: run_eval(rng, pred))
+    log(f"eval: phase took {t_eval / 1e3:.1f} s")
+    _, t_surface = _timed(lambda: run_predict_surface(rng, pred, repo / "build" / "chip_smoke"))
+    log(f"predict surface: phase took {t_surface / 1e3:.1f} s")
     (step0, micro, steady), t_full = _timed(lambda: run_train_full(args.seed, rng))
     log(f"train full: phase took {t_full / 1e3:.1f} s")
     _, t_bf16 = _timed(lambda: run_bf16_step(args.seed, step0, micro, steady, profile=args.profile))
@@ -2122,6 +2689,11 @@ def main(argv=None) -> int:
     _, t_versions = _timed(lambda: run_versions(args.seed, rng))
     log(f"versions: phase took {t_versions / 1e3:.1f} s")
     launches.update({k: train_launches[k] for k in ("deformable_bwd", "masked_attention_bwd")})
+    parallel_launches, t_parallel = _timed(lambda: run_parallel(args.seed, rng, step0, micro[0], eval_set, repo,
+                                                                card=smi))
+    for k, v in parallel_launches.items():
+        launches[k] += v
+    log(f"parallel: phase took {t_parallel / 1e3:.1f} s [{smi}]")
 
     meta = {
         "deform_sample_levels": ("rgbdseg_torch/csrc/deformable.cu", "rgbdseg_tpu/ops/kernels/deformable.py:337", "deformable"),

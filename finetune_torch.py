@@ -17,6 +17,15 @@ COCO-RLE JSON and comparison PNGs when their paths are set.
 
 It runs on the CUDA device; `--device cpu` (stripped before the arguments are
 parsed) or `main(argv, device="cpu")` runs it on the CPU.
+
+Several processes, one per device (data parallelism over `num_devices`,
+tensor parallelism over `model_parallel_size`):
+
+    torchrun --nproc_per_node=N finetune_torch.py config.json [--device cpu]
+
+`parallel.multihost.initialize()` joins the process group first (NCCL on the
+card, each rank on `cuda:LOCAL_RANK`; Gloo with `--device cpu`). Every rank
+trains and evaluates; rank 0 alone writes the artifacts.
 """
 
 import json
@@ -28,7 +37,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from rgbdseg_torch.config import ModelConfig
 from rgbdseg_torch.data.pipeline import build_datasets
-from rgbdseg_torch.inference.predictor import pop_device_flag, resolve_device
+from rgbdseg_torch.inference.predictor import pop_device_flag
+from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+from rgbdseg_torch.parallel.mesh import barrier, is_main_process, mesh_device
+from rgbdseg_torch.parallel.multihost import initialize
 from rgbdseg_torch.train.arguments import parse_args
 from rgbdseg_torch.train.checkpoints import find_last_checkpoint
 from rgbdseg_torch.train.trainer import Trainer, save_metrics
@@ -40,7 +52,8 @@ logger = logging.getLogger(__name__)
 def main(argv=None, device=None):
     """Run the flow; returns the Trainer."""
     argv, flag_device = pop_device_flag(list(sys.argv[1:] if argv is None else argv))
-    dev = resolve_device(device or flag_device)
+    initialize(device=device or flag_device)
+    dev = mesh_device(device or flag_device)
     args, training_args = parse_args(argv)
     setup_logging()
     logger.info("Training/evaluation parameters %s", training_args)
@@ -90,15 +103,21 @@ def main(argv=None, device=None):
         # output_dir (finetuning.py:114-117) in its key layout.
         from rgbdseg_torch.utils.hf_convert import export_hf_checkpoint
 
-        export_hf_checkpoint(trainer.model, cfg, training_args.output_dir, id2label=id2label)
-        logger.info("HF checkpoint exported to %s", training_args.output_dir)
+        model = trainer.model
+        if trainer.model.tp_shards:  # the full tensors, in a model of the full shapes
+            full = trainer.full_state_dict()
+            model = Mask2FormerRGBD(cfg)
+            model.load_state_dict({k: v.cpu() for k, v in full.items()})
+        if is_main_process():
+            export_hf_checkpoint(model, cfg, training_args.output_dir, id2label=id2label)
+            logger.info("HF checkpoint exported to %s", training_args.output_dir)
 
     if training_args.do_eval:
         outputs, metrics = trainer.predict(valid_ds)
         metrics["test_samples"] = len(valid_ds)
         save_metrics(training_args.output_dir, "test", metrics)
         logger.info("test metrics: %s", json.dumps(metrics, indent=2))
-
+    if training_args.do_eval and is_main_process():
         from rgbdseg_torch.train.model_card import create_model_card
 
         create_model_card(
@@ -126,6 +145,7 @@ def main(argv=None, device=None):
                 gt_json_path=args.gt_json_path,
                 comparison_output_dir=args.comparison_output_dir,
             )
+    barrier()
     return trainer
 
 

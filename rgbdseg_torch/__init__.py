@@ -9,7 +9,8 @@ kernels under `ops/kernels` built from `csrc/`), `models/`, `inference/`
 codec), `train/` (arguments, train step with accumulation and the bf16
 policy, the epoch loop with checkpoints and resume, evaluate, predict,
 evaluator, mAP, model card, hub upload), `utils/` (weights, the HF checkpoint
-bridge, a safetensors reader and writer), `tools/` (the learning proof). The
-port imports nothing of the JAX package; tests hold each module against its
-JAX counterpart.
+bridge, a safetensors reader and writer), `parallel/` (data and tensor
+parallelism over torch.distributed), `tools/` (the learning proof, the QA
+viewers). The port imports nothing of the JAX package; tests hold each module
+against its JAX counterpart.
 """

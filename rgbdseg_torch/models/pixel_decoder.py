@@ -5,6 +5,10 @@
 strides 32/16/8). The sampling of all levels goes through kernel K1
 (`ops.kernels.deformable.deform_sample_levels`), one launch per encoder
 layer. LayerNorm and GroupNorm use flax's default eps 1e-6, not torch's 1e-5.
+Under tensor parallelism a deformable attention holds its rank's heads: the
+value projection split over its outputs, the output projection over its
+inputs, and the rank's heads of the replicated offsets and weights
+(`parallel.sharding.shard_model`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.kernels.deformable import deform_sample_levels
 from ..ops.resize import resize_bilinear
+from ..parallel.sharding import local_heads, take_heads
 from .layers import Conv2d, GroupNorm, LayerNorm, Linear
 from .position import sine_position_embedding
 
@@ -52,7 +57,10 @@ def sampling_locations(reference_points, offsets, spatial_shapes) -> torch.Tenso
 
 
 class DeformableAttention(nn.Module):
-    """Multi-scale deformable self-attention (n_levels levels, n_points points)."""
+    """Multi-scale deformable self-attention (n_levels levels, n_points points).
+    `tp` is set by tensor parallelism."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -65,15 +73,15 @@ class DeformableAttention(nn.Module):
         self.output_proj = Linear(d, d)
 
     def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes):
-        nh, npts = self.nh, self.npts
+        npts, tp = self.npts, self.tp
         nl = len(spatial_shapes)
         b, l, d = hidden_states.shape
-        hd = d // nh
+        nh, hd = local_heads(self.nh, tp), d // self.nh
         with_pos = hidden_states + position_embeddings
         value = self.value_proj(hidden_states).reshape(b, l, nh, hd)
-        offsets = self.sampling_offsets(with_pos).reshape(b, l, nh, nl, npts, 2)
-        weights = torch.softmax(self.attention_weights(with_pos).reshape(b, l, nh, nl * npts), dim=-1)
-        weights = weights.reshape(b, l, nh, nl, npts)
+        offsets = take_heads(self.sampling_offsets(with_pos).reshape(b, l, self.nh, nl, npts, 2), 2, tp)
+        weights = take_heads(self.attention_weights(with_pos).reshape(b, l, self.nh, nl * npts), 2, tp)
+        weights = torch.softmax(weights, dim=-1).reshape(b, l, nh, nl, npts)
 
         locations = sampling_locations(reference_points, offsets, spatial_shapes)
         out = deform_sample_levels(value, spatial_shapes, locations, weights.float())

@@ -6,7 +6,9 @@ Both draw their keep masks from an explicit `torch.Generator` that the caller
 passes down the forward; the masks are drawn on the generator's device and
 moved to the activations'. Both are the identity in eval mode and at rate 0.
 The two frameworks' generators give different bits from one seed, so tests
-compare semantics, not masks.
+compare semantics, not masks. Under data parallelism a mask is drawn for the
+global batch and the rank keeps its rows (`parallel.mesh.global_draw`), so a
+step over N ranks draws what one process draws over the whole batch.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.mesh import global_draw
+
 
 def _keep_mask(shape, keep: float, generator: torch.Generator | None, device) -> torch.Tensor:
     if generator is None:
         raise ValueError("train mode with a non-zero drop rate needs a torch.Generator")
-    return (torch.rand(shape, generator=generator, device=generator.device) < keep).to(device)
+    draw = global_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape)
+    return (draw < keep).to(device)
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:

@@ -9,6 +9,9 @@ maps; maps are zero-padded to window multiples. The shifted-window mask adds
 -100 between regions. In train mode each block's two residual branches go
 through drop path, its rate scheduled linearly over all blocks from 0 to
 `drop_path_rate` (0.3 for Swin-T), with masks from the caller's generator.
+Under tensor parallelism (`parallel.sharding.shard_model`) an attention block
+holds its rank's heads: q/k/v split over their outputs, the projection over
+its inputs, and the rank's columns of the replicated bias table.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SwinConfig
+from ..parallel.sharding import copy_to_model, local_heads, take_heads
 from .layers import Conv2d, LayerNorm, Linear, promote
 from .stochastic import drop_path
 
@@ -60,11 +64,14 @@ def shift_attn_mask(hp: int, wp: int, ws: int, shift: int, device) -> torch.Tens
 class WindowAttention(nn.Module):
     """Window self-attention with relative position bias. The query/key/value
     projections are kept as separate Linear modules (checkpoint layout) and
-    applied as one fused (C, 3C) product."""
+    applied as one fused (C, 3C) product. `tp` is set by tensor parallelism."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.window_size = window_size
         self.query = Linear(dim, dim, bias=qkv_bias)
         self.key = Linear(dim, dim, bias=qkv_bias)
@@ -80,9 +87,9 @@ class WindowAttention(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor | None) -> torch.Tensor:
-        nb, n, c = x.shape
-        nh = self.num_heads
-        hd = c // nh
+        nb, n, _ = x.shape
+        nh, hd = local_heads(self.num_heads, self.tp), self.head_dim
+        x = copy_to_model(x, self.tp)
         w = torch.cat([self.query.weight, self.key.weight, self.value.weight], dim=0)
         bias = None
         if self.query.bias is not None:
@@ -90,14 +97,15 @@ class WindowAttention(nn.Module):
         qkv = F.linear(*promote(x, w, bias)).reshape(nb, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (nb, nh, n, hd)
         attn = (q * hd**-0.5) @ k.transpose(-1, -2)
-        rpb = self.relative_position_bias_table[self.rel_index].reshape(n, n, nh).permute(2, 0, 1)
+        table = take_heads(self.relative_position_bias_table, 1, self.tp)
+        rpb = table[self.rel_index].reshape(n, n, nh).permute(2, 0, 1)
         attn = attn.float() + rpb[None].float()
         if attn_mask is not None:
             nw = attn_mask.shape[0]
             attn = attn.reshape(nb // nw, nw, nh, n, n) + attn_mask[None, :, None]
             attn = attn.reshape(nb, nh, n, n)
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(nb, n, c)
+        out = (attn @ v).transpose(1, 2).reshape(nb, n, nh * hd)
         return self.proj(out)
 
 

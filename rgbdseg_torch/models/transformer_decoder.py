@@ -8,7 +8,8 @@ layer's attention mask: keys whose raw resized mask logit is < 0
 (sigmoid < 0.5) are blocked, except for queries that would block every key.
 Masked cross-attention goes through kernel K3
 (`ops.kernels.masked_attention.masked_cross_attention`). LayerNorms use flax's
-default eps 1e-6.
+default eps 1e-6. Under tensor parallelism an attention module holds its
+rank's heads (`parallel.sharding.shard_model`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.kernels.masked_attention import masked_cross_attention
 from ..ops.resize import resize_bilinear
+from ..parallel.sharding import local_heads
 from .layers import LayerNorm, Linear
 from .position import sine_position_embedding
 
@@ -37,19 +39,22 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    """Dense multi-head attention; `attn_mask` is (raw mask logits, all_blocked)."""
+    """Dense multi-head attention; `attn_mask` is (raw mask logits, all_blocked).
+    `tp` is set by tensor parallelism."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.q_proj = Linear(dim, dim)
         self.k_proj = Linear(dim, dim)
         self.v_proj = Linear(dim, dim)
         self.out_proj = Linear(dim, dim)
 
     def forward(self, query, key, value, attn_mask=None):
-        nh = self.num_heads
-        hd = query.shape[-1] // nh
+        nh, hd = local_heads(self.num_heads, self.tp), self.head_dim
         q = _split_heads(self.q_proj(query), nh) * hd**-0.5
         k = _split_heads(self.k_proj(key), nh)
         v = _split_heads(self.v_proj(value), nh)

@@ -16,6 +16,11 @@ Where the port differs from the JAX package, and why:
   reaches the masks only (the coordinates are drawn without one).
 - Coordinates come from a `torch.Generator` through `_uniform`, which tests
   replace to feed both criteria the same points.
+- Under data parallelism (`parallel.mesh.active`) each rank scores its own
+  rows: the coordinates are drawn for the global batch and the rank keeps its
+  rows, and the denominators (`num_masks`, the class weights' sum) are summed
+  over the data group, so the ranks' losses add up to the global batch's loss
+  (the JAX SPMD program's).
 The criterion runs in float32 whatever the model's dtype.
 
 Mask logits are (B, Q, H, W); target masks (B, T, H, W) float 0/1.
@@ -27,15 +32,18 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..parallel.mesh import data_sum, global_draw
 from .matcher import hungarian_batch
 
 LOSS_KEYS = ("loss_cross_entropy", "loss_mask", "loss_dice")
 
 
 def _uniform(generator: torch.Generator, shape: tuple) -> torch.Tensor:
-    """Point-coordinate draw in [0, 1). An indirection, so that tests can inject
-    the same coordinates into this criterion and the JAX package's."""
-    return torch.rand(shape, generator=generator, device=generator.device)
+    """Point-coordinate draw in [0, 1) of a batch-first shape (for the global
+    batch under data parallelism, this rank's rows kept). An indirection, so
+    that tests can inject the same coordinates into this criterion and the JAX
+    package's."""
+    return global_draw(lambda s: torch.rand(s, generator=generator, device=generator.device), shape)
 
 
 def _sample_masks_at_points(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -138,7 +146,7 @@ def layer_losses(cfg: ModelConfig, class_logits, mask_logits, target_masks, targ
     wvec = torch.ones(cfg.num_labels + 1, device=class_logits.device)
     wvec[-1] = cfg.no_object_weight
     wy = wvec[tgt_q]
-    loss_ce = (wy * nll).sum() / wy.sum()
+    loss_ce = (wy * nll).sum() / data_sum(wy.sum())
     return {"loss_cross_entropy": loss_ce, "loss_mask": loss_mask, "loss_dice": loss_dice}
 
 
@@ -146,8 +154,9 @@ def mask2former_loss(cfg: ModelConfig, outputs, target_masks, target_classes, ta
     """The full criterion: (total, per-layer losses). The per-layer dict maps each
     loss to a (num_layers,) tensor, ordered [aux_0 ... aux_{L-2}, final] and
     already scaled by its weight. Every layer is matched before any is scored,
-    with one device-to-host copy of all cost matrices."""
-    num_masks = target_valid.float().sum().clamp(min=1.0)
+    with one device-to-host copy of all cost matrices. Under data parallelism
+    the total is this rank's share of the global batch's loss."""
+    num_masks = data_sum(target_valid.float().sum()).clamp(min=1.0)
     all_cls = list(outputs.aux_class_logits) + [outputs.class_queries_logits]
     all_msk = list(outputs.aux_mask_logits) + [outputs.masks_queries_logits]
     if not cfg.use_auxiliary_loss:

@@ -4,11 +4,9 @@
 `prog config.json` or `prog --flag value ...`: a data/model `Arguments` block
 and a `TrainingArguments` block, from one JSON file or command-line flags.
 
-Two fields ask for what the port does not have yet, parallelism over several
-devices (`num_devices`, `model_parallel_size`). They exist, with the JAX
-package's defaults; `check_supported` raises NotImplementedError, naming the
-ROADMAP.md item that ports it, for either set to another value, and the port's
-training entry points call it.
+`num_devices` and `model_parallel_size` lay the processes out
+(`parallel.make_mesh`): the port runs one process per device, so
+`num_devices` is the process group's world size (None: whatever it is).
 """
 
 from __future__ import annotations
@@ -89,22 +87,6 @@ class TrainingArguments:
     # upload output_dir to the HF Hub after training
     push_to_hub: bool = False
     hub_model_id: Optional[str] = None  # default: basename(output_dir)
-
-
-# Fields whose non-default values the port cannot honour yet -> the ROADMAP.md item that ports them.
-UNPORTED = {
-    "num_devices": "§1 item 5 (parallelism)",
-    "model_parallel_size": "§1 item 5 (parallelism)",
-}
-
-
-def check_supported(args: TrainingArguments) -> None:
-    """Raise NotImplementedError for a field of UNPORTED set to a non-default value."""
-    defaults = TrainingArguments()
-    for name, item in UNPORTED.items():
-        if getattr(args, name) != getattr(defaults, name):
-            raise NotImplementedError(
-                f"TrainingArguments.{name}={getattr(args, name)!r} is not ported yet: ROADMAP.md {item}")
 
 
 def _add_fields(parser: argparse.ArgumentParser, dc) -> None:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -53,12 +53,20 @@ def save_checkpoint(output_dir: str, step: int, model: torch.nn.Module, optimize
                     save_total_limit: Optional[int] = None) -> str:
     """Write `checkpoint-{step}/` under output_dir and keep only the newest
     `save_total_limit` checkpoints; returns the checkpoint's path."""
+    return write_checkpoint(output_dir, step, model.state_dict(), optimizer.state_dict(), generator.get_state(),
+                            save_total_limit)
+
+
+def write_checkpoint(output_dir: str, step: int, model_state: dict, optimizer_state: dict, rng_state: torch.Tensor,
+                     save_total_limit: Optional[int] = None) -> str:
+    """`save_checkpoint` of the states themselves (a tensor-parallel model's
+    gathered to full tensors first)."""
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}"))
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, os.path.join(tmp, MODEL_FILE))
-    torch.save({"optimizer": optimizer.state_dict(), "step": int(step), "rng": generator.get_state()},
+    torch.save({k: v.detach().cpu() for k, v in model_state.items()}, os.path.join(tmp, MODEL_FILE))
+    torch.save({"optimizer": optimizer_state, "step": int(step), "rng": rng_state},
                os.path.join(tmp, TRAINER_FILE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
@@ -72,12 +80,18 @@ def save_checkpoint(output_dir: str, step: int, model: torch.nn.Module, optimize
     return path
 
 
-def load_checkpoint(path: str, model: torch.nn.Module, optimizer, generator: torch.Generator) -> int:
+def load_checkpoint(path: str, model: torch.nn.Module, optimizer, generator: torch.Generator,
+                    shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> int:
     """Restore a checkpoint into `model`, `optimizer` and `generator` (each on
-    its own device, the generator's state included); returns its step."""
-    model.load_state_dict(load_checkpoint_partial(path), strict=True)
+    its own device, the generator's state included); returns its step.
+    `shard(name, full tensor)` cuts each parameter and moment to a
+    tensor-parallel model's slice."""
+    cut = shard or (lambda name, t: t)
+    model.load_state_dict({k: cut(k, v) for k, v in load_checkpoint_partial(path).items()}, strict=True)
     state = torch.load(os.path.join(path, TRAINER_FILE), map_location="cpu", weights_only=True)
-    optimizer.load_state_dict(state["optimizer"])
+    opt = state["optimizer"]
+    optimizer.load_state_dict({"count": opt["count"],
+                               "state": {n: {k: cut(n, v) for k, v in st.items()} for n, st in opt["state"].items()}})
     generator.set_state(state["rng"])
     return int(state["step"])
 

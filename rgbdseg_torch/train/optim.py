@@ -31,6 +31,17 @@ where(norm < max, 1, norm) and multiplied by where(norm < max, 1, max).
 `state_dict` / `load_state_dict` carry optax's step count and the moments
 keyed by parameter name (torch's own key them by position across the decay
 groups), for the checkpoints of `train/checkpoints.py`.
+
+Under tensor parallelism (`parallel.sharding.shard_model`) the optimizer is
+given the names of the sharded parameters and the model group. The replicated
+parameters' gradients are first averaged over the model group: every rank
+computes them whole, but float atomics (grid_sample's and K1's backward) and
+cuDNN's backward sum in an order that changes from run to run, so on the card
+the ranks' copies part by a last bit, and so would the replicated parameters
+after the update. The global norm then adds the sharded gradients' squares
+over the model group to the replicated ones' (counted once), so every rank
+clips by the full model's norm. Adam and the decay act element by element, on
+each rank's shard.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.mask2former import INTRINSICS_PREDICTOR
 from .arguments import TrainingArguments
@@ -91,9 +103,11 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW(torch.optim.Optimizer):
     """clip_by_global_norm(max_grad_norm) then AdamW, as the JAX trainer's optax
     chain over every parameter outside `FROZEN_MODULES`. `step()` returns the
-    global norm of the gradients before clipping."""
+    global norm of the gradients before clipping. `sharded` names the
+    tensor-parallel shards, whose squares are summed over `model_group` (given
+    when it has more than one rank), over which the other gradients are averaged."""
 
-    def __init__(self, named_parameters, args: TrainingArguments, total_steps: int):
+    def __init__(self, named_parameters, args: TrainingArguments, total_steps: int, sharded=(), model_group=None):
         named = [(n, p) for n, p in named_parameters if not is_frozen(n)]
         groups = [
             {"params": [p for n, p in named if is_decayed(n)], "weight_decay": args.weight_decay},
@@ -105,6 +119,8 @@ class AdamW(torch.optim.Optimizer):
         self.total_steps = total_steps
         self.schedule = linear_schedule(args.learning_rate, total_steps, args.warmup_ratio)
         self.count = 0  # optimizer steps taken (optax's count)
+        self.sharded = frozenset(sharded)
+        self.model_group = model_group
 
     def state_dict(self) -> dict:
         """{"count": steps taken, "state": {parameter name: {"mu", "nu"}}} on the
@@ -131,16 +147,39 @@ class AdamW(torch.optim.Optimizer):
                 self.state[p].update({k: v.to(device=p.device, dtype=p.dtype).clone() for k, v in st.items()})
         self.count = int(state_dict["count"])
 
+    def _average_replicated(self, params) -> None:
+        """The replicated gradients' mean over the model group, in one all-reduce."""
+        grads = [p.grad for p in params if p.grad is not None and self.names[p] not in self.sharded]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.model_group)
+        flat /= dist.get_world_size(self.model_group)
+        torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(flat.split([g.numel() for g in grads]), grads)])
+
+    def _global_norm(self, params) -> torch.Tensor:
+        if self.model_group is None:
+            return global_norm([p.grad for p in params])
+
+        def squares(ps):
+            if not ps:
+                return params[0].grad.new_zeros((), dtype=torch.float32)
+            return torch.stack(torch._foreach_norm([p.grad.float() for p in ps])).square().sum()
+
+        shard = squares([p for p in params if self.names[p] in self.sharded])
+        dist.all_reduce(shard, group=self.model_group)
+        return torch.sqrt(squares([p for p in params if self.names[p] not in self.sharded]) + shard)
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
             raise ValueError("this optimizer takes no closure")
         a = self.args
         params = [p for g in self.param_groups for p in g["params"]]
+        if self.model_group is not None:
+            self._average_replicated(params)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = global_norm([p.grad for p in params])
+        norm = self._global_norm(params)
         keep = norm < a.max_grad_norm  # on the device: no host sync
         div = torch.where(keep, 1.0, norm)
         mul = torch.where(keep, 1.0, torch.full_like(norm, a.max_grad_norm))

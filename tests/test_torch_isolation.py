@@ -98,6 +98,13 @@ def test_visualize_imports_matplotlib_only_when_called():
     assert "matplotlib" in _imported_roots(REPO / "rgbdseg_torch" / "inference" / "visualize.py")
 
 
+def test_qa_viewers_draw_without_matplotlib():
+    """The QA viewers run on the card's machine, which has no matplotlib: they
+    compose their panels as uint8 images and write them with `image_io`."""
+    roots = _imported_roots(REPO / "rgbdseg_torch" / "tools" / "qa_viewers.py")
+    assert "matplotlib" not in roots and not roots & FORBIDDEN
+
+
 def test_chip_smoke_fails_without_card_or_checkout(tmp_path):
     """No result line and a non-zero exit: alone in a directory, and (here,
     without CUDA) in the checkout."""
