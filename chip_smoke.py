@@ -134,8 +134,22 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      1e-5, the device-stats path taken; (e) the QA viewers on the card against
      the CPU, their PNGs read back; then K1, K3 and both backward kernels at 4
      heads against their plain versions, timed (phases 3 and 5 at 4 heads);
+  20. tools (`run_tools`): (a) `do_depth_image_process` of a seeded 720x1280
+     z16 frame (a RealSense D435 depth frame) on the card and the CPU, all 8
+     outputs equal bit for bit, ms per frame over 20 frames with each
+     operation's share, `save_frame`'s PNGs read back equal; (b) a seeded COCO
+     set of 8 480x640 images (convex, concave and border-touching polygons,
+     RLE donuts) through `dataset_constructor`, `AnnotationConverter.convert`
+     and `convert_to_coco_json`, host ms per image, and the pixels that differ
+     when the hole-free polygons are filled again; (c) `finetune_torch.main`
+     on the built set (0.4.0 at full width, f32, 1 epoch of 2 steps at batch
+     2, the 16-bit masks through `SegmentationDataset`): finite losses, 6 K1 +
+     9 K3 launches per micro-step forward and backward; (d) `plot_logs` of its
+     trainer_state.json, `mask_check.label_check` of its train meta (the card's
+     overlays equal to the CPU's), `predict_torch.py --compare` of its
+     prediction and GT JSONs, every PNG read back;
   19. a `kernels` JSON line (its launches include phase 18's, the children's
-     summed); the last line is the device JSON.
+     summed, and phase 20's); the last line is the device JSON.
 With --profile, phases 4, 6 and 13 also profile one request, one train step
 and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
 busy share and the kernels that take the most device time.
@@ -2626,6 +2640,249 @@ def run_qa_viewers(rng, out_dir: Path, device: str = "cuda", card: str = "") -> 
                              f"{flips} source flips")
 
 
+# The tools phase (20): the host tools of rgbdseg_torch/tools/ around the data
+# layer, on a RealSense-sized depth stream and a COCO set they turn into a
+# training set.
+CURATION_FRAMES = 20  # z16 frames timed through do_depth_image_process
+TOOLS_IMAGES, TOOLS_TRAIN = 8, 4  # the COCO set's images and its train split
+CURATION_LIMIT_MS = 33.0  # one frame of a 30 fps camera (PERF.md §2)
+
+
+def z16_frame(rng, h: int = 720, w: int = 1280) -> np.ndarray:
+    """A RealSense D435 depth frame: a 300-5000 mm ramp, noise, ~5% zeros."""
+    depth = np.linspace(300, 5000, w)[None, :] + rng.normal(0, 25, (h, w))
+    depth[rng.rand(h, w) < 0.05] = 0
+    return np.clip(depth, 0, 65535).astype(np.uint16)
+
+
+def tools_coco(rng, root: Path, n: int = TOOLS_IMAGES, h: int = 480, w: int = 640) -> Path:
+    """A seeded COCO set under `root`: n RGB frames and their 8-bit depth, each
+    with 4-12 instances of 3 categories: convex and concave polygons, one
+    touching the border per image, and RLE donuts."""
+    from rgbdseg_torch.data.image_io import write_png
+    from rgbdseg_torch.inference import rle
+
+    (root / "images").mkdir(parents=True)
+    (root / "depth").mkdir()
+    images, annotations = [], []
+    for i in range(n):
+        rgb, depth, _ = synthetic_frame(rng, h, w)
+        write_png(str(root / "images" / f"{i}.png"), rgb)
+        write_png(str(root / "depth" / f"{i}.png"), depth)
+        images.append({"id": i, "file_name": f"{i}.png", "height": h, "width": w})
+        for k in range(rng.randint(4, 13)):
+            cx, cy, r = rng.uniform(0.1 * w, 0.9 * w), rng.uniform(0.1 * h, 0.9 * h), rng.uniform(20, 90)
+            if k == 0:  # over the border
+                cx, cy = rng.choice([-0.2 * r, w + 0.2 * r]), rng.uniform(0, h)
+            if k % 4 == 3:
+                yy, xx = np.mgrid[0:h, 0:w]
+                dist = np.hypot(yy - cy, xx - cx)
+                seg = rle.encode(((dist <= r) & (dist > r / 2)).astype(np.uint8))
+            else:
+                n_v = rng.randint(5, 24)
+                t = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+                rad = r * (1 + (0.6 if k % 2 else 0.0) * rng.uniform(-1, 1, n_v))  # concave when odd
+                seg = [np.stack([cx + rad * np.cos(t), cy + rad * np.sin(t)], 1).reshape(-1).tolist()]
+            annotations.append({"id": len(annotations) + 1, "image_id": i, "category_id": (4, 2, 9)[k % 3],
+                                "segmentation": seg, "iscrowd": 0})
+    coco = {"images": images, "annotations": annotations,
+            "categories": [{"id": 4, "name": "cup"}, {"id": 2, "name": "box"}, {"id": 9, "name": "can"}]}
+    path = root / "coco.json"
+    path.write_text(json.dumps(coco))
+    return path
+
+
+def run_curation(rng, out_dir: Path, device: str = "cuda", card: str = "") -> None:
+    """Phase 20a: `do_depth_image_process` of a 720x1280 z16 frame on the card
+    and on the CPU (all 8 outputs equal bit for bit), the ms per frame over
+    CURATION_FRAMES frames on the host clock with each operation's share, and
+    `save_frame`'s PNGs read back equal."""
+    import torch
+
+    from rgbdseg_torch.data.image_io import load_unchanged
+    from rgbdseg_torch.tools.realsense import depth_enhance as E
+    from rgbdseg_torch.tools.realsense import display
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    depth = z16_frame(rng)
+    got = display.do_depth_image_process(depth, device)
+    want = display.do_depth_image_process(depth, "cpu")
+    equal = {k: bool(torch.equal(got[k].cpu(), want[k])) for k in want}
+    if len(equal) != 8 or not all(equal.values()):
+        raise AssertionError(f"curation: card and CPU differ: {equal}")
+    frame_ms = []
+    for d in [z16_frame(rng) for _ in range(CURATION_FRAMES)]:
+        sync()
+        t = time.perf_counter()
+        display.do_depth_image_process(d, device)
+        sync()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    mean_ms = sum(frame_ms) / len(frame_ms)
+    sync()
+    t = time.perf_counter()
+    for _ in range(CURATION_FRAMES):
+        display.do_depth_image_process(depth, device)
+    sync()
+    pipelined_ms = (time.perf_counter() - t) * 1e3 / CURATION_FRAMES
+    d32 = E.u16_to_device(depth, device)
+    gray = E.convert_scale_abs(d32, alpha=0.03)
+    ops = {"upload": lambda: E.u16_to_device(depth, device),
+           "convertScaleAbs": lambda: E.convert_scale_abs(d32, alpha=0.03),
+           "jet": lambda: E.apply_colormap(gray, E.COLORMAP_JET),
+           "bone": lambda: E.apply_colormap(gray, E.COLORMAP_BONE),
+           **{name: (lambda fn=fn: fn(gray)) for name, fn in E.ENHANCEMENTS.items()}}
+    op_ms = {}
+    for name, fn in ops.items():
+        fn()
+        sync()
+        t = time.perf_counter()
+        for _ in range(CURATION_FRAMES):
+            fn()
+        sync()
+        op_ms[name] = (time.perf_counter() - t) * 1e3 / CURATION_FRAMES
+    t = time.perf_counter()
+    display.do_depth_image_process(depth, "cpu")
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    frame = {"color": rng.randint(0, 256, (720, 1280, 3)).astype(np.uint8), "depth_raw": depth,
+             **{k: v.cpu().numpy() for k, v in got.items()}}
+    display.save_frame(str(out_dir), 0, frame)
+    back = {k: np.array_equal(load_unchanged(str(out_dir / k / "0.png")), v) for k, v in frame.items()}
+    if not all(back.values()):
+        raise AssertionError(f"curation: saved PNGs differ from the frame: {back}")
+    shares = ", ".join(f"{k} {v:.3f} ms ({100 * v / mean_ms:.1f}%)" for k, v in op_ms.items())
+    log(f"tools (a) curation: 720x1280 z16 frame, 8 outputs card = CPU bit for bit; {mean_ms:.3f} ms per frame "
+        f"over {len(frame_ms)} frames (host clock, each synchronised, upload included; min {min(frame_ms):.3f}, "
+        f"median {sorted(frame_ms)[len(frame_ms) // 2]:.3f}, max {max(frame_ms):.3f}; limit {CURATION_LIMIT_MS} "
+        f"ms); {pipelined_ms:.3f} ms per frame with one synchronise after {CURATION_FRAMES}; per op, {CURATION_FRAMES} calls each on one frame, and its share of the mean frame: {shares}; CPU "
+        f"{cpu_ms:.1f} ms per frame; {len(back)} PNGs read back equal [{card}]")
+
+
+def run_tools(seed: int, rng, out_dir: Path, device: str = "cuda", card: str = "", model_config=None,
+              size: tuple = (480, 640)) -> dict:
+    """Phase 20, the tools: (a) depth curation; (b) a COCO set of TOOLS_IMAGES
+    frames through `dataset_constructor`, `AnnotationConverter.convert` and
+    `convert_to_coco_json`; (c) `finetune_torch.main` on the built set (0.4.0,
+    f32, 1 epoch of 2 steps at batch 2; the 16-bit masks through
+    `SegmentationDataset`), 6 K1 + 9 K3 launches per micro-step forward and
+    backward; (d) `plot_logs` of its trainer_state.json, `mask_check.label_check`
+    of its train meta (the card's overlays equal to the CPU's) and
+    `predict_torch.py --compare` of its prediction and GT JSONs. Returns the
+    kernels' launches of (c) and (d)."""
+    import shutil
+
+    import torch
+
+    import finetune_torch
+    import predict_torch
+    from rgbdseg_torch.data.image_io import load_unchanged, png_header, read_png
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.tools import annotation_converter, dataset_builder, labelme_coco, mask_check, plot_logs
+    from rgbdseg_torch.tools.dataset_builder import polygon_to_mask
+    from rgbdseg_torch.train import trainer as T
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (out_dir / "frames").mkdir(parents=True)
+    run_curation(rng, out_dir / "frames", device, card)
+
+    # (b) the dataset
+    src = out_dir / "src"
+    coco_path = tools_coco(rng, src, h=size[0], w=size[1])
+    coco = json.loads(coco_path.read_text())
+    n_ann, n_rle = len(coco["annotations"]), sum(isinstance(a["segmentation"], dict) for a in coco["annotations"])
+    built = out_dir / "set"
+    fx, t_build = _timed(lambda: dataset_builder.dataset_constructor(
+        str(coco_path), str(src / "images"), str(built), train_ratio=TOOLS_TRAIN / TOOLS_IMAGES, seed=seed))
+    records = json.loads(Path(fx["train"]).read_text()) + json.loads(Path(fx["valid"]).read_text())
+    depths = [png_header(r["annotation"])[2] for r in records]
+    if depths != [16] * TOOLS_IMAGES:
+        raise AssertionError(f"built masks' bit depths {depths}; the tools write 16-bit masks")
+    conv = annotation_converter.AnnotationConverter(str(out_dir / "converted"))
+    converted, t_convert = _timed(lambda: conv.convert("coco", str(coco_path)))
+    back, t_back = _timed(lambda: conv.convert_to_coco_json(records, str(out_dir / "back.json")))
+    # the hole-free instances' polygons filled again, against their instances'
+    # masks (the instance most of the filled pixels belong to)
+    refill, n_poly = 0, 0
+    for a in back["annotations"]:
+        if isinstance(a["segmentation"], list):
+            inst = load_unchanged(records[a["image_id"]]["annotation"])[..., 1]
+            filled = polygon_to_mask(a["segmentation"], *inst.shape).astype(bool)
+            iid = int(np.bincount(inst[filled & (inst > 0)]).argmax())
+            refill += int(((inst == iid) != filled).sum())
+            n_poly += 1
+    log(f"tools (b) dataset: {TOOLS_IMAGES} {size[0]}x{size[1]} images, {n_ann} annotations ({n_rle} RLE donuts); "
+        f"dataset_constructor {t_build / TOOLS_IMAGES:.1f} ms per image, AnnotationConverter.convert "
+        f"{t_convert / len(converted):.1f} ms, convert_to_coco_json {t_back / len(records):.1f} ms (host); "
+        f"{len(back['annotations'])} annotations back, {n_poly} as polygons: {refill} pixels differ when filled again "
+        f"(a reading), {conv.instance_counter} instances converted")
+
+    # (c) train on it: [rgb, depth] records, the layout 0.4.0 reads
+    meta = {}
+    for split in ("train", "valid"):
+        recs = json.loads(Path(fx[split]).read_text())
+        meta[split] = labelme_coco.build_multimodal_meta(recs, [str(src / "depth")], str(built / f"{split}_rgbd.json"))
+    run = out_dir / "run"
+    config = {
+        "root_path": str(built), "train_json_path": "train_rgbd.json", "valid_json_path": "valid_rgbd.json",
+        "label2id_path": "label2id.json", "image_height": size[0], "image_width": size[1], "version": "0.4.0",
+        "output_dir": str(run), "num_train_epochs": 1, "per_device_train_batch_size": 2,
+        "per_device_eval_batch_size": 2, "learning_rate": 1e-4, "seed": seed, "save_strategy": "no",
+        "do_eval": True, "max_instances": 16, "prediction_json_path": str(run / "pred.json"),
+        "gt_json_path": str(run / "gt.json"), "comparison_output_dir": str(run / "comparison"),
+    }
+    if model_config is not None:
+        (out_dir / "model.json").write_text(model_config.to_json())
+        config["model_config_json"] = str(out_dir / "model.json")
+    (out_dir / "finetune.json").write_text(json.dumps(config))
+    micro, orig_micro = [], T.micro_step
+
+    def counted_micro(*a, **k):
+        before = dict(K.LAUNCHES)
+        out = orig_micro(*a, **k)
+        micro.append(({n: K.LAUNCHES[n] - before[n] for n in K.LAUNCHES}, float(out[0])))
+        return out
+
+    T.micro_step = counted_micro
+    try:
+        K.reset_launches()
+        _, t_ft = _timed(lambda: finetune_torch.main([str(out_dir / "finetune.json")], device=device))
+    finally:
+        T.micro_step = orig_micro
+    launches = dict(K.LAUNCHES)
+    expect = TRAIN_LAUNCHES if device != "cpu" else {k: 0 for k in TRAIN_LAUNCHES}
+    losses = [x for _, x in micro]
+    if len(micro) != TOOLS_TRAIN // 2 or any(d != expect for d, _ in micro) or not np.isfinite(losses).all():
+        raise AssertionError(f"tools (c): micro-steps {micro}; expected {TOOLS_TRAIN // 2} x {expect}, finite loss")
+    log(f"tools (c) train: finetune_torch.main on the built set ({len(meta['train'])} train, {len(meta['valid'])} "
+        f"valid [rgb, depth] records, 16-bit masks), {t_ft / 1e3:.1f} s; micro-step losses "
+        f"{[round(x, 4) for x in losses]}, each launching {micro[0][0]}; all launches {launches}")
+
+    # (d) plots, mask checks and comparison grids
+    written = plot_logs.main([str(run / "trainer_state.json"), "--output_dir", str(out_dir / "plots")])
+    shapes = [read_png(p).shape for p in written]
+    if [os.path.basename(p) for p in written][:1] != ["training_metrics.png"] or \
+            shapes[0] != (2 * plot_logs.PANEL_H, 3 * plot_logs.PANEL_W, 3):
+        raise AssertionError(f"plot_logs wrote {written} {shapes}")
+    checked, t_check = _timed(lambda: mask_check.label_check(
+        str(built / "train.json"), "", str(out_dir / "checks"), device=device))
+    overlays = [(mask_check.visualize_masks(r["image"][0], r["annotation"], device=device),
+                 mask_check.visualize_masks(r["image"][0], r["annotation"], device="cpu")) for r in meta["train"]]
+    same = [bool(np.array_equal(a, b)) for a, b in overlays]
+    reread = [read_png(str(out_dir / "checks" / f"check_{i}.png")).shape for i in range(checked)]
+    if checked != TOOLS_TRAIN or not all(same) or reread != [(size[0], 3 * size[1], 3)] * checked:
+        raise AssertionError(f"mask_check: {checked} checked, card = CPU {same}, PNGs {reread}")
+    grids = out_dir / "grids"
+    predict_torch.main(["--compare", "--gt_json", str(run / "gt.json"), "--model_json", f"finetune={run / 'pred.json'}",
+                        "--output_dir", str(grids)], device=device)
+    names = sorted(os.listdir(grids))
+    n_gt = len({r["image_id"] for r in json.loads((run / "gt.json").read_text())})
+    grid_shapes = {read_png(str(grids / n)).shape for n in names}
+    if len(names) != n_gt or not names:
+        raise AssertionError(f"--compare wrote {names} for {n_gt} GT images")
+    log(f"tools (d) figures: plot_logs {[os.path.basename(p) for p in written]} {shapes}; label_check {checked} "
+        f"overlays in {t_check:.1f} ms, card = CPU {same}; --compare wrote {len(names)} grids {grid_shapes}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2694,6 +2951,11 @@ def main(argv=None) -> int:
     for k, v in parallel_launches.items():
         launches[k] += v
     log(f"parallel: phase took {t_parallel / 1e3:.1f} s [{smi}]")
+    tools_launches, t_tools = _timed(lambda: run_tools(args.seed, rng, repo / "build" / "chip_smoke" / "tools",
+                                                        card=smi))
+    for k, v in tools_launches.items():
+        launches[k] += v
+    log(f"tools: phase took {t_tools / 1e3:.1f} s")
 
     meta = {
         "deform_sample_levels": ("rgbdseg_torch/csrc/deformable.cu", "rgbdseg_tpu/ops/kernels/deformable.py:337", "deformable"),

@@ -186,7 +186,8 @@ class SegmentationDataset:
         no augmentation transform, and one frame size across the dataset (header
         reads only). The size need not be the target size: the device builder
         resizes with the host resamplers' exact twins; one size keeps the packed
-        batches to one shape."""
+        batches to one shape. The packed frames are 8-bit, so a 16-bit frame
+        sends the dataset to the host builders, which read it as PIL does."""
         spec = get_version(self.version)
         if not DP.supported(spec.map_fn) or R.TRANSFORM is not None:
             return False
@@ -197,6 +198,8 @@ class SegmentationDataset:
             if len(imgs) < n_frames:
                 return False
             for p in imgs[:n_frames]:
+                if isinstance(p, str) and image_io.png_header(p)[2] != 8:
+                    return False
                 sizes.add(_frame_size(p))
                 if len(sizes) > 1:
                     return False

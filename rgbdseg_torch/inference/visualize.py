@@ -7,8 +7,9 @@
   with the port's cv2 INTER_LINEAR twin (`ops.resize_exact`);
 - `visualize_multi_model_json_results`: GT-consistent grids across models
   from COCO-RLE JSONs (matched predictions take their GT instance's colour,
-  unmatched ones are red). It imports matplotlib when called, so the module
-  imports without it.
+  unmatched ones are red): one row of panels, "GT" then each model under its
+  name, drawn by `utils/raster.py` (the card's machine has no matplotlib)
+  and written as `compare_<image id>.png`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ..data.image_io import write_png
 from ..ops.resize_exact import cv2_resize_linear_u8
+from ..utils import raster
 from . import rle as rle_codec
 from .export import match_predictions_to_gt
 from .postprocess import _resize_nearest_np
@@ -74,11 +76,6 @@ def visualize_multi_model_json_results(
     images: dict | None = None,
 ) -> None:
     """GT-consistent comparison grids across N models from COCO-RLE JSONs."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
     with open(gt_json_path) as f:
         gt_records = json.load(f)
     model_records = {}
@@ -90,31 +87,38 @@ def visualize_multi_model_json_results(
     models_by_img = {name: _group(records) for name, records in model_records.items()}
 
     os.makedirs(output_dir, exist_ok=True)
-    n_models = len(model_json_paths)
     for img_id, gts in gt_by_img.items():
         gt_masks = [rle_codec.decode(r["segmentation"]) for r in gts]
         h, w = gt_masks[0].shape if gt_masks else (64, 64)
         base = images[img_id] if images and img_id in images else np.full((h, w, 3), 40, np.uint8)
         gt_colors = [_color_for(i) for i in range(len(gt_masks))]
 
-        fig, axes = plt.subplots(1, n_models + 1, figsize=(4 * (n_models + 1), 4))
-        axes = np.atleast_1d(axes)
-        axes[0].imshow(overlay_instances(base, gt_masks, gt_colors))
-        axes[0].set_title("GT")
-        axes[0].axis("off")
-        for mi, (name, by_img) in enumerate(models_by_img.items()):
+        panels = [("GT", overlay_instances(base, gt_masks, gt_colors))]
+        for name, by_img in models_by_img.items():
             preds = by_img.get(img_id, [])
             pmasks = [rle_codec.decode(r["segmentation"]) for r in preds]
             matches = match_predictions_to_gt(pmasks, gt_masks, iou_threshold)
             colors = [np.asarray([255, 0, 0], np.uint8)] * len(pmasks)  # unmatched = red
             for pi, gi, _ in matches:
                 colors[pi] = gt_colors[gi]
-            axes[mi + 1].imshow(overlay_instances(base, pmasks, colors))
-            axes[mi + 1].set_title(name)
-            axes[mi + 1].axis("off")
-        fig.tight_layout()
-        fig.savefig(os.path.join(output_dir, f"compare_{img_id}.png"), dpi=100)
-        plt.close(fig)
+            panels.append((name, overlay_instances(base, pmasks, colors)))
+        write_png(os.path.join(output_dir, f"compare_{img_id}.png"), panel_row(panels))
+
+
+TITLE_H, PANEL_GAP = 24, 8  # the comparison grid's title strip and the space between panels
+
+
+def panel_row(panels: list[tuple[str, np.ndarray]]) -> np.ndarray:
+    """(title, (h, w, 3) uint8 image) panels of one size side by side on white,
+    each under its title."""
+    h, w = panels[0][1].shape[:2]
+    out = raster.canvas(TITLE_H + h, len(panels) * (w + PANEL_GAP) - PANEL_GAP)
+    for i, (title, image) in enumerate(panels):
+        x0 = i * (w + PANEL_GAP)
+        out[TITLE_H:, x0:x0 + w] = image
+        tw, th = raster.text_size(title, 2)
+        raster.text(out, x0 + (w - tw) // 2, (TITLE_H - th) // 2, title, scale=2)
+    return out
 
 
 def _group(records):

@@ -4,14 +4,12 @@
 Trains version 0.4.0 (full-size Swin-T + E-DSAM + DGGM by default) from
 scratch on a tiny fixture with per-epoch eval, asserting that the eval mAP
 ends >= --target, and writes trainer_state.json (the full log_history),
-train_results.json, test_results.json, all_results.json and a README.md that
-names the device, its power limit and the command into --output.
+train_results.json, test_results.json, all_results.json, the training-curve
+PNGs (`tools/plot_logs`) and a README.md that names the device, its power
+limit and the command into --output.
 
 Mirrors the reference's tiny-set methodology: train AND valid on the same tiny
 split, metrics per epoch (experiments/architecture/architecture_change.md:67-96).
-The training-curve PNGs of the JAX tool need matplotlib and its
-`tools/plot_logs`, which the port does not have yet (ROADMAP.md §1 item 6);
-the README says so.
 
 Usage (on the CUDA device; --device cpu with --tiny for a CPU rehearsal):
     python -m rgbdseg_torch.tools.overfit_run --output artifacts/overfit_torch \
@@ -112,6 +110,14 @@ def main(argv=None):
     maps = [e["eval_map"] for e in trainer.log_history if "eval_map" in e]
     print(json.dumps({"eval_map_trajectory": [round(m, 4) for m in maps]}))
 
+    from rgbdseg_torch.tools.plot_logs import plot_multiple_training_metrics
+
+    written = plot_multiple_training_metrics(
+        {"overfit_v0.4.0": os.path.join(args.output, "trainer_state.json")},
+        args.output,
+    )
+    print("curves:", written)
+
     command = (f"python -m rgbdseg_torch.tools.overfit_run --output {args.output} --size {args.size} "
                f"--epochs {args.epochs} --num_images {args.num_images} --batch {args.batch} --lr {args.lr}"
                f"{' --tiny' if args.tiny else ''}{' --float32' if args.float32 else ''}"
@@ -126,9 +132,7 @@ def main(argv=None):
             f"{args.size}x{args.size}, seed 5), train and eval on the same images.\n\n"
             f"Final eval: mAP {final['eval_map']:.4f} (target >= {args.target}); train runtime "
             f"{metrics['train_runtime']:.1f} s, whole run {wall:.1f} s. The per-epoch trajectory is in "
-            "trainer_state.json's log_history. The JAX tool also draws the curves "
-            "(training_metrics.png); the port has no plotting tool yet (ROADMAP.md §1 item 6), so there is "
-            "no PNG here.\n"
+            "trainer_state.json's log_history, curves in training_metrics.png.\n"
         )
     shutil.rmtree(tmp, ignore_errors=True)
     if final["eval_map"] < args.target:

@@ -183,13 +183,17 @@ def test_png_reader_keeps_cv2_channel_order_for_masks(tmp_path):
 
 
 def test_png_reader_rejects_what_it_does_not_read(tmp_path):
+    """Palettes and sub-byte samples raise (16-bit samples are read since the
+    tools write them: tests/test_torch_tools.py)."""
     path = str(tmp_path / "p.png")
     Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(path)
     with pytest.raises(ValueError, match="not supported"):
         image_io.read_png(path)
-    Image.fromarray(np.zeros((8, 8), np.uint16)).save(path)
-    with pytest.raises(ValueError, match="bit depth 16"):
+    Image.fromarray(np.zeros((8, 8), bool)).save(path)
+    with pytest.raises(ValueError, match="bit depth 1"):
         image_io.read_png(path)
+    Image.fromarray(np.zeros((8, 8), np.uint16)).save(path)
+    assert image_io.read_png(path).dtype == np.uint16
 
 
 # ---------------------------------------------------------------- map functions

@@ -1,12 +1,14 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package (nor
-cv2, PIL, safetensors or transformers, which the card's machine lacks, and
-matplotlib only inside the one function that draws with it),
-its native code is loaded through ctypes only, its entry points run on the
-card unless asked otherwise, the kernel wrappers take the plain versions only
-for CPU tensors without counting a launch, and the JAX package's variables
-load into the port's modules with `strict=True`."""
+cv2, PIL, matplotlib, safetensors or transformers, which the card's machine
+lacks, and pyrealsense2 only inside the functions that talk to a camera), its
+tools run with cv2, PIL and matplotlib unimportable, its native code is
+loaded through ctypes only, its entry points run on the card unless asked
+otherwise, the kernel wrappers take the plain versions only for CPU tensors
+without counting a launch, and the JAX package's variables load into the
+port's modules with `strict=True`."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -37,14 +39,25 @@ from rgbdseg_torch.train.trainer import build_training, put_batch
 from rgbdseg_torch.utils.weights import from_flax
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL", "safetensors", "transformers"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL", "matplotlib", "safetensors",
+             "transformers"}
 PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [
     REPO / name for name in ("chip_smoke.py", "kernel_ab.py", "finetune_torch.py", "predict_torch.py")]
 
 
-def _imported_roots(path: Path) -> set[str]:
+def _nodes(tree, in_functions: bool = True):
+    """The AST's nodes; without `in_functions`, none inside a function body."""
+    todo = [tree]
+    while todo:
+        node = todo.pop()
+        yield node
+        if in_functions or not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            todo.extend(ast.iter_child_nodes(node))
+
+
+def _imported_roots(path: Path, in_functions: bool = True) -> set[str]:
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in _nodes(ast.parse(path.read_text(), filename=str(path)), in_functions):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -83,19 +96,76 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_native_code_is_loaded_through_ctypes_only():
     native = REPO / "rgbdseg_torch" / "native"
-    assert sorted(p.name for p in native.iterdir() if p.name != "__pycache__") == ["__init__.py", "rle.c"]
+    assert sorted(p.name for p in native.iterdir() if p.name != "__pycache__") == ["__init__.py", "contours.c", "rle.c"]
     roots = _imported_roots(native / "__init__.py")
     assert "ctypes" in roots and roots <= {"__future__", "ctypes", "hashlib", "os", "shutil", "subprocess",
                                            "pathlib", "typing", "numpy"}
     assert not any("native" in str(p) for p in (REPO / "rgbdseg_torch").rglob("*.so"))  # built under build/
 
 
-def test_visualize_imports_matplotlib_only_when_called():
-    tree = ast.parse((REPO / "rgbdseg_torch" / "inference" / "visualize.py").read_text())
-    top = {a.name for node in tree.body if isinstance(node, ast.Import) for a in node.names}
-    top |= {node.module for node in tree.body if isinstance(node, ast.ImportFrom) and node.module}
-    assert not any(m.startswith("matplotlib") for m in top)
-    assert "matplotlib" in _imported_roots(REPO / "rgbdseg_torch" / "inference" / "visualize.py")
+def test_no_port_file_imports_matplotlib():
+    """The comparison grids, the curves and the QA panels are drawn by
+    `utils/raster.py`: the card's machine has no matplotlib."""
+    assert [str(p.relative_to(REPO)) for p in PORT_FILES if "matplotlib" in _imported_roots(p)] == []
+    assert "visualize_multi_model_json_results" in (REPO / "rgbdseg_torch" / "inference" / "visualize.py").read_text()
+
+
+def test_pyrealsense2_is_imported_inside_functions_only():
+    users = [p for p in PORT_FILES if "pyrealsense2" in _imported_roots(p)]
+    assert {p.name for p in users} == {"display.py", "recorder.py"}
+    assert not any("pyrealsense2" in _imported_roots(p, in_functions=False) for p in users)
+
+
+TOOLS_WITHOUT_CV2 = r"""
+import json, os, sys
+sys.modules.update({"cv2": None, "PIL": None, "matplotlib": None})
+import numpy as np
+from rgbdseg_torch.data.image_io import read_png, write_png
+from rgbdseg_torch.inference import rle
+from rgbdseg_torch.inference.visualize import visualize_multi_model_json_results
+from rgbdseg_torch.tools import annotation_converter, dataset_builder, labelme_coco, mask_check, plot_logs
+from rgbdseg_torch.tools.realsense import display
+
+root = sys.argv[1]
+os.makedirs(f"{root}/images")
+write_png(f"{root}/images/0.png", np.full((24, 32, 3), 90, np.uint8))
+donut = np.zeros((24, 32), np.uint8)
+donut[4:16, 4:16] = 1
+donut[8:12, 8:12] = 0
+coco = {"images": [{"id": 0, "file_name": "0.png", "height": 24, "width": 32}],
+        "categories": [{"id": 1, "name": "cup"}],
+        "annotations": [{"id": 1, "image_id": 0, "category_id": 1, "segmentation": [[20, 2, 30, 4, 26, 20]]},
+                        {"id": 2, "image_id": 0, "category_id": 1, "segmentation": rle.encode(donut)}]}
+json.dump(coco, open(f"{root}/coco.json", "w"))
+fx = dataset_builder.dataset_constructor(f"{root}/coco.json", f"{root}/images", f"{root}/set", train_ratio=1.0)
+conv = annotation_converter.AnnotationConverter(f"{root}/conv")
+records = conv.convert("coco", f"{root}/coco.json")
+back = conv.convert_to_coco_json(records, f"{root}/back.json")
+os.makedirs(f"{root}/labelme")
+json.dump({"imagePath": "0.png", "imageHeight": 24, "imageWidth": 32,
+           "shapes": [{"label": "cup", "points": [[1, 1], [9, 2], [4, 8]]}]}, open(f"{root}/labelme/0.json", "w"))
+labelme_coco.convert_labelme_to_coco(f"{root}/labelme", f"{root}/labelme.json")
+checked = mask_check.label_check(fx["train"], "", f"{root}/checks", device="cpu")
+state = {"log_history": [{"epoch": 1.0, "loss": 1.0}, {"epoch": 1.0, "eval_map": 0.5, "eval_map_cup": 0.5}]}
+json.dump(state, open(f"{root}/trainer_state.json", "w"))
+curves = plot_logs.plot_multiple_training_metrics({"run": f"{root}/trainer_state.json"}, f"{root}/plots")
+depth = (np.arange(24 * 32).reshape(24, 32) * 7).astype(np.uint16)
+display.save_frame(f"{root}/frames", 0, {"depth_raw": depth, **display.do_depth_image_process(depth, "cpu")})
+json.dump([{"image_id": 0, "category_id": 1, "segmentation": a["segmentation"], "score": 1.0}
+           for a in back["annotations"] if isinstance(a["segmentation"], dict)], open(f"{root}/gt.json", "w"))
+visualize_multi_model_json_results(f"{root}/gt.json", {"m": f"{root}/gt.json"}, f"{root}/grids")
+print(json.dumps({"annotations": len(back["annotations"]), "checked": checked, "curves": len(curves),
+                  "frames": len(os.listdir(f"{root}/frames")), "grids": os.listdir(f"{root}/grids"),
+                  "mask": list(read_png(f"{root}/set/mask/0.png").shape)}))
+"""
+
+
+def test_tools_run_without_cv2_pil_and_matplotlib(tmp_path):
+    r = subprocess.run([sys.executable, "-c", TOOLS_WITHOUT_CV2, str(tmp_path)], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {
+        "annotations": 2, "checked": 1, "curves": 2, "frames": 9, "grids": ["compare_0.png"], "mask": [24, 32, 3]}
 
 
 def test_qa_viewers_draw_without_matplotlib():

@@ -292,7 +292,7 @@ def test_checkpoints_pruned_and_guard_as_jax(tmp_path):
 
 def test_artifact_keys_equal_the_jax_runs(tmp_path):
     """A tiny run of the port's learning-proof tool writes the JAX run's files
-    with the JAX run's keys (artifacts/overfit/)."""
+    with the JAX run's keys and its curve PNGs (artifacts/overfit/)."""
     from rgbdseg_torch.tools import overfit_run
 
     out = tmp_path / "overfit"
@@ -305,7 +305,8 @@ def test_artifact_keys_equal_the_jax_runs(tmp_path):
     got = json.loads((out / "trainer_state.json").read_text())["log_history"]
     want = json.loads((ref / "trainer_state.json").read_text())["log_history"]
     assert [e.keys() for e in got] == [e.keys() for e in want[:2]]
-    assert "ROADMAP.md §1 item 6" in (out / "README.md").read_text()
+    assert sorted(p.name for p in out.glob("*.png")) == sorted(p.name for p in ref.glob("*.png"))
+    assert "curves in training_metrics.png" in (out / "README.md").read_text()
 
 
 def test_profiler_traces_the_chosen_steps(port_set, tmp_path):

@@ -356,8 +356,11 @@ def test_first_convolution_sees_one_layout(tiny):
 
 
 def test_multi_model_grids_equal_jax(tmp_path):
-    """`visualize_multi_model_json_results` (matplotlib, imported when called):
-    the same grid figures as the JAX package's from the same COCO-RLE JSONs."""
+    """`visualize_multi_model_json_results` draws its row with `utils/raster.py`
+    (the card's machine has no matplotlib): the JAX package's file names, and
+    each panel the overlay the JAX package's figure shows ("GT" in its
+    instances' colours, then the model with matched predictions in their GT
+    instance's colour and unmatched ones red), pixel for pixel."""
     rng = np.random.RandomState(9)
     gt = [{"segmentation": (rng.rand(3, 24, 32) > 0.6).astype(np.uint8),
            "segments_info": [{"label_id": 1, "score": 1.0}] * 3} for _ in range(2)]
@@ -370,6 +373,21 @@ def test_multi_model_grids_equal_jax(tmp_path):
             json.dump(texport.predictions_to_json(res, [0, 1]), f)
     for module, out in ((tvis, "port"), (jvis, "jax")):
         module.visualize_multi_model_json_results(paths["gt"], {"model_a": paths["model_a"]}, str(tmp_path / out))
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax")) == \
+        ["compare_0.png", "compare_1.png"]
+    records = {name: json.loads(open(path).read()) for name, path in paths.items()}
+    base = np.full((24, 32, 3), 40, np.uint8)
     for i in (0, 1):
-        got, ref = (np.asarray(Image.open(tmp_path / d / f"compare_{i}.png")) for d in ("port", "jax"))
-        np.testing.assert_array_equal(got, ref)
+        got = np.asarray(Image.open(tmp_path / "port" / f"compare_{i}.png"))
+        assert got.shape == (tvis.TITLE_H + 24, 2 * 32 + tvis.PANEL_GAP, 3)
+        gmasks, pmasks = ([jrle.decode(r["segmentation"]) for r in records[name] if r["image_id"] == i]
+                          for name in ("gt", "model_a"))
+        gt_colors = [jvis._color_for(k) for k in range(len(gmasks))]
+        colors = [np.asarray([255, 0, 0], np.uint8)] * len(pmasks)
+        for pi, gi, _ in jexport.match_predictions_to_gt(pmasks, gmasks, 0.5):
+            colors[pi] = gt_colors[gi]
+        for k, panel in enumerate([jvis.overlay_instances(base, gmasks, gt_colors),
+                                   jvis.overlay_instances(base, pmasks, colors)]):
+            x0 = k * (32 + tvis.PANEL_GAP)
+            np.testing.assert_array_equal(got[tvis.TITLE_H:, x0:x0 + 32], panel)
+        assert (got[:tvis.TITLE_H] != 255).any()  # the titles
