@@ -97,7 +97,9 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      loads it (parameters, BatchNorm statistics, the optimizer's moments and
      count, the CUDA generator's state: all equal to the saved ones bit for
      bit) and trains epoch 2, whose mean loss must lie within RESUME_LOSS_RTOL
-     of the uninterrupted run's;
+     of the interrupted run's own epoch 2, trained on from the state it saved
+     (so the two differ only by epoch 2's atomics, not by two runs' epoch 1),
+     and whose first micro-step loss must equal that run's bit for bit;
   16. predict entry: `predict_torch.main` on one raw 480x640 PNG pair of that
      set, from `--checkpoint checkpoint-8` and from `--hf_checkpoint` of the
      run's export: the logits equal bit for bit, 6 K1 and 9 K3 launches each,
@@ -130,10 +132,15 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      BatchNorm statistics 1e-5, both ranks' parameters equal bit for bit, 6 +
      9 launches forward and backward per rank, the step ms and the time in
      collectives; (d) `Trainer.evaluate` over phase 10's 8 examples in the two
-     processes against one: metric keys equal, mAP within 1e-6, loss within
-     1e-5, the device-stats path taken; (e) the QA viewers on the card against
-     the CPU, their PNGs read back; then K1, K3 and both backward kernels at 4
-     heads against their plain versions, timed (phases 3 and 5 at 4 heads);
+     processes against one, by the device-stats route and by the host mask
+     route (RGBDSEG_EVAL_DEVICE_STATS=0: the logits gathered to both ranks):
+     metric keys equal, mAP within 1e-6 (the keys equal bit for bit counted),
+     loss within 1e-5, the device-stats path logged on its route only, 6 K1 +
+     9 K3 launches per batch per rank on both, both routes' mAP keys equal on
+     each rank; each route's ms and all-reduced bytes per rank; (e) the QA
+     viewers on the card against the CPU, their PNGs read back; then K1, K3
+     and both backward kernels at 4 heads against their plain versions, timed
+     (phases 3 and 5 at 4 heads);
   20. tools (`run_tools`): (a) `do_depth_image_process` of a seeded 720x1280
      z16 frame (a RealSense D435 depth frame) on the card and the CPU, all 8
      outputs equal bit for bit, ms per frame over 20 frames with each
@@ -1647,6 +1654,7 @@ def run_finetune(seed: int, out_dir: Path):
     width, its artifacts, its launches per micro-step and its epoch times; then
     an interrupted run resumed by a fresh `Trainer`. Returns the run's output
     directory and the set's root."""
+    import dataclasses
     import shutil
 
     import torch
@@ -1760,7 +1768,6 @@ def run_finetune(seed: int, out_dir: Path):
             first.train()
         except KeyboardInterrupt:
             pass
-        del first
         last = find_last_checkpoint(targs.output_dir)
         if last != saved["path"] or saved["step"] != steps // FT_EPOCHS:
             raise AssertionError(f"interrupted run: last checkpoint {last}, saved {saved['path']} at {saved['step']}")
@@ -1779,19 +1786,33 @@ def run_finetune(seed: int, out_dir: Path):
         }
         if not all(same.values()):
             raise AssertionError(f"reloaded state differs from the saved one: {same}")
-        micro.clear()
-        resumed.train(resume_from_checkpoint=last)
-        if resumed.global_step != steps or len(micro) != steps // FT_EPOCHS:
-            raise AssertionError(f"resumed run ended at step {resumed.global_step} after {len(micro)} micro-steps")
-        straight = float(np.mean(losses[steps // FT_EPOCHS:]))
-        again = float(np.mean([float(x) for _, x in micro]))
+        # The interrupted run's own continuation from the state it saved, in memory:
+        # it writes its epoch-2 checkpoint beside the resumed run's, not over it.
+        first._save, first.args = save, dataclasses.replace(targs, output_dir=str(out_dir / "straight"))
+        epoch2 = {}
+        for label, run_epoch2 in (("resumed", lambda: resumed.train(resume_from_checkpoint=last)),
+                                  ("uninterrupted", first.train)):
+            micro.clear()
+            run_epoch2()
+            epoch2[label] = [float(x) for _, x in micro]
+            if len(micro) != steps // FT_EPOCHS:
+                raise AssertionError(f"{label} run's epoch 2 took {len(micro)} micro-steps")
+        if resumed.global_step != steps or first.global_step != steps:
+            raise AssertionError(f"epoch 2 ended at steps {resumed.global_step} (resumed), {first.global_step}")
+        straight, again = (float(np.mean(epoch2[k])) for k in ("uninterrupted", "resumed"))
         rel = abs(again - straight) / abs(straight)
         log(f"finetune resume: checkpoint-{saved['step']} reloaded by a fresh Trainer equal bit for bit "
-            f"({', '.join(same)}); epoch-2 mean loss resumed {again:.7f} vs uninterrupted {straight:.7f}, "
-            f"relative {rel:.3e} (tol {RESUME_LOSS_RTOL:g})")
+            f"({', '.join(same)}); epoch-2 mean loss resumed {again:.7f} vs the interrupted run's own continuation "
+            f"in memory {straight:.7f}, relative {rel:.3e} (tol {RESUME_LOSS_RTOL:g}); micro-step losses resumed "
+            f"{epoch2['resumed']}, uninterrupted {epoch2['uninterrupted']}; the finetune run's epoch 2 (another "
+            f"run, its own atomics from step 1) {float(np.mean(losses[steps // FT_EPOCHS:])):.7f}")
         if not rel <= RESUME_LOSS_RTOL:
             raise AssertionError(f"resumed epoch-2 loss differs by {rel}")
-        del resumed, trainer
+        # the first step of epoch 2 runs the same forward on the same state and batch
+        if epoch2["resumed"][0] != epoch2["uninterrupted"][0]:
+            raise AssertionError(f"epoch 2's first loss: resumed {epoch2['resumed'][0]}, "
+                                 f"uninterrupted {epoch2['uninterrupted'][0]}")
+        del resumed, first, trainer
     finally:
         T.micro_step, SegmentationDataset.batches = orig_micro, orig_batches
     return run, Path(fx["root"])
@@ -2318,7 +2339,8 @@ def parallel_reference(seed: int, step0, batch, pp, cfg, device: str = "cuda") -
 def parallel_child(work: Path, seed: int) -> int:
     """The child process of phase 18 (one of two sharing the card, Gloo): (b)
     dp=2, batch 1 per rank; (c) dp=1 x mp=2, the whole batch on each rank at 4
-    heads; (d) `Trainer.evaluate` at a global batch of 2. The model's config,
+    heads; (d) `Trainer.evaluate` at a global batch of 2, by the device-stats
+    route and then the host mask route. The model's config,
     the device, the batch, the shared decisions and the eval batches come from
     `work`/reference.pt; it writes its readings to child{rank}.pt there."""
     import logging
@@ -2349,7 +2371,7 @@ def parallel_child(work: Path, seed: int) -> int:
     # Time inside collectives: the blocking all-reduces on the host clock (the
     # model's, the loss's, the norm's; waiting for the other rank included), and
     # DDP's bucket all-reduces from issue to completion (they overlap the backward).
-    sync_ms, bucket_ms = [], []
+    sync_ms, sync_bytes, bucket_ms = [], [], []
     original_all_reduce = dist.all_reduce
 
     def timed_all_reduce(*a, **kw):
@@ -2358,6 +2380,7 @@ def parallel_child(work: Path, seed: int) -> int:
         t = time.perf_counter()
         out = original_all_reduce(*a, **kw)
         sync_ms.append((time.perf_counter() - t) * 1e3)
+        sync_bytes.append(a[0].numel() * a[0].element_size())
         return out
 
     dist.all_reduce = timed_all_reduce
@@ -2417,7 +2440,9 @@ def parallel_child(work: Path, seed: int) -> int:
         del net, model, opt
         torch.cuda.empty_cache()
 
-    # (d) eval: a Trainer over the eval examples at a global batch of 2 (1 per rank).
+    # (d) eval: a Trainer over the eval examples at a global batch of 2 (1 per
+    # rank), by the device-stats route and by the host mask route
+    # (RGBDSEG_EVAL_DEVICE_STATS=0 in this process's environment).
     lines = []
 
     class Keep(logging.Handler):
@@ -2431,13 +2456,25 @@ def parallel_child(work: Path, seed: int) -> int:
     trainer = Trainer(cfg, _parallel_args(num_devices=2, per_device_eval_batch_size=EVAL_B // 2, seed=seed,
                                           output_dir=str(work / f"eval{rank}")),
                       None, BatchSet(ref["eval"]), {i: f"class{i}" for i in range(cfg.num_labels)}, device=device)
-    K.reset_launches()
-    sync_ms.clear()
-    metrics, ms = _timed(trainer.evaluate)
-    trainer_log.removeHandler(handler)
-    results["eval"] = {"metrics": metrics, "ms": ms, "launches": dict(K.LAUNCHES),
-                       "lines": [ln for ln in lines if "device-stats path" in ln],
-                       "sync_ms": (len(sync_ms), sum(sync_ms))}
+    previous = os.environ.get("RGBDSEG_EVAL_DEVICE_STATS")
+    try:
+        for route, switch in (("device stats", "1"), ("host masks", "0")):
+            os.environ["RGBDSEG_EVAL_DEVICE_STATS"] = switch
+            lines.clear()
+            sync_ms.clear()
+            sync_bytes.clear()
+            K.reset_launches()
+            metrics, ms = _timed(trainer.evaluate)
+            results.setdefault("eval", {})[route] = {
+                "metrics": metrics, "ms": ms, "launches": dict(K.LAUNCHES),
+                "lines": [ln for ln in lines if "device-stats path" in ln],
+                "sync_ms": (len(sync_ms), sum(sync_ms)), "sync_bytes": sum(sync_bytes)}
+    finally:
+        if previous is None:
+            os.environ.pop("RGBDSEG_EVAL_DEVICE_STATS", None)
+        else:
+            os.environ["RGBDSEG_EVAL_DEVICE_STATS"] = previous
+        trainer_log.removeHandler(handler)
     dist.all_reduce = original_all_reduce
     torch.save(results, work / f"child{rank}.pt")
     dist.destroy_process_group()
@@ -2453,10 +2490,12 @@ def run_parallel(seed: int, rng, step0, batch, eval_batches_, repo: Path, device
     reference's attention masks and assignments (the flips of each rank's own
     counted and printed), both ranks' parameters equal bit for bit, (c) with K1
     and K3 forward and backward at 4 heads; (d) `Trainer.evaluate` in the two
-    processes against one: the metric keys, every mAP within PARALLEL_MAP_TOL,
-    the loss within PARALLEL_EVAL_RTOL, the device-stats path taken; then the
-    four kernels at 4 heads against their plain versions, timed (phases 3 and 5
-    at TP_HEADS). Returns the launches of the steps and evals run here, the
+    processes against one, by both routes (device stats; host masks under
+    RGBDSEG_EVAL_DEVICE_STATS=0): the metric keys, every mAP within
+    PARALLEL_MAP_TOL, the loss within PARALLEL_EVAL_RTOL, the device-stats path
+    logged on its route alone, 6 K1 + 9 K3 launches per batch on each, the two
+    routes' mAP keys equal on each rank; then the four kernels at 4 heads
+    against their plain versions, timed (phases 3 and 5 at TP_HEADS). Returns the launches of the steps and evals run here, the
     children's summed. `device` and `backend` are the card's and NCCL; the
     children share the card (`cuda:0`, LOCAL_RANK 0) over Gloo. `card` (its
     name and power limit) closes every line of readings."""
@@ -2557,24 +2596,43 @@ def run_parallel(seed: int, rng, step0, batch, eval_batches_, repo: Path, device
                 + ", ".join(kids[0]["tp"]["blocks"]))
 
     keys = lambda m: {k for k in m if not k.endswith(("runtime", "samples_per_second"))}  # noqa: E731
+    expected = {k: v * len(eval_batches_) for k, v in SERVE_LAUNCHES.items()}
     for kid in kids:
-        e = kid["eval"]
-        got = e["metrics"]
-        if keys(got) != keys(ref_metrics):
-            raise AssertionError(f"parallel (d): metric keys differ: {sorted(keys(got) ^ keys(ref_metrics))}")
-        loss_rel = abs(got["eval_loss"] - ref_metrics["eval_loss"]) / abs(ref_metrics["eval_loss"])
-        maps = {k: abs(got[k] - ref_metrics[k]) for k in keys(got) if k != "eval_loss"}
-        log(f"parallel (d) eval, rank {kid['rank']}: {len(keys(got))} metric keys, eval_loss {got['eval_loss']:.7f} "
-            f"/ {ref_metrics['eval_loss']:.7f} (rel {loss_rel:.2e}), mAP keys equal bit for bit "
-            f"{sum(d == 0 for d in maps.values())} of {len(maps)} (max |diff| {max(maps.values()):.2e}), eval_map "
-            f"{got['eval_map']:.6f}; {e['ms']:.1f} ms ({ref_metrics['eval_runtime'] * 1e3:.1f} in one process, "
-            f"{t_eval:.1f} with its set-up); blocking collectives {e['sync_ms'][0]} calls {e['sync_ms'][1]:.2f} ms; "
-            f"launches {e['launches']}; {e['lines'][:1]} [{card}]")
-        if not loss_rel <= PARALLEL_EVAL_RTOL or max(maps.values()) > PARALLEL_MAP_TOL or not e["lines"]:
-            raise AssertionError(f"parallel (d) rank {kid['rank']}: loss {loss_rel}, mAP {max(maps.values())}, "
-                                 f"device-stats path {bool(e['lines'])}")
-        for k, v in e["launches"].items():
-            launches[k] += v
+        for route, e in kid["eval"].items():
+            got = e["metrics"]
+            if keys(got) != keys(ref_metrics):
+                raise AssertionError(f"parallel (d) {route}: metric keys differ: "
+                                     f"{sorted(keys(got) ^ keys(ref_metrics))}")
+            loss_rel = abs(got["eval_loss"] - ref_metrics["eval_loss"]) / abs(ref_metrics["eval_loss"])
+            maps = {k: abs(got[k] - ref_metrics[k]) for k in keys(got) if k != "eval_loss"}
+            log(f"parallel (d) eval, {route}, rank {kid['rank']}: {len(keys(got))} metric keys, eval_loss "
+                f"{got['eval_loss']:.7f} / {ref_metrics['eval_loss']:.7f} (rel {loss_rel:.2e}), mAP keys equal bit "
+                f"for bit {sum(d == 0 for d in maps.values())} of {len(maps)} (max |diff| {max(maps.values()):.2e}), "
+                f"eval_map {got['eval_map']:.6f}; {e['ms']:.1f} ms ({ref_metrics['eval_runtime'] * 1e3:.1f} in one "
+                f"process, {t_eval:.1f} with its set-up); blocking all-reduces {e['sync_ms'][0]} calls "
+                f"{e['sync_ms'][1]:.2f} ms, {e['sync_bytes']} bytes; launches {e['launches']}; {e['lines'][:1]} "
+                f"[{card}]")
+            if not loss_rel <= PARALLEL_EVAL_RTOL or max(maps.values()) > PARALLEL_MAP_TOL:
+                raise AssertionError(f"parallel (d) {route} rank {kid['rank']}: loss {loss_rel}, mAP "
+                                     f"{max(maps.values())}")
+            if bool(e["lines"]) != (route == "device stats"):
+                raise AssertionError(f"parallel (d) {route} rank {kid['rank']}: device-stats path logged "
+                                     f"{e['lines'][:1]}")
+            if e["launches"] != expected:
+                raise AssertionError(f"parallel (d) {route} rank {kid['rank']}: launches {e['launches']}, "
+                                     f"expected {expected}")
+            for k, v in e["launches"].items():
+                launches[k] += v
+        # one forward's logits on both routes: their metric inputs, and so their mAP keys, are the same
+        dev, host = ({k: m[k] for k in keys(m) if k != "eval_loss"}
+                     for m in (kid["eval"][r]["metrics"] for r in ("device stats", "host masks")))
+        if dev != host:
+            raise AssertionError(f"parallel (d) rank {kid['rank']}: the two routes' mAP keys differ: "
+                                 f"{ {k: (dev[k], host.get(k)) for k in dev if dev[k] != host.get(k)} }")
+        log(f"parallel (d) rank {kid['rank']}: host mask route {kid['eval']['host masks']['ms']:.1f} ms against "
+            f"device stats {kid['eval']['device stats']['ms']:.1f} ms, all-reduced "
+            f"{kid['eval']['host masks']['sync_bytes']} against {kid['eval']['device stats']['sync_bytes']} bytes "
+            f"[{card}]")
 
     run_qa_viewers(rng, repo / "build" / "chip_smoke" / "qa", device, card)
     log(f"parallel (c): the four kernels at {TP_HEADS} heads (one rank's share under model_parallel_size 2) "

@@ -33,6 +33,15 @@ has what it needs (else it says so and is skipped):
   turns old, new, new, old (`--requests` rounds): median step ms of each.
 
 Prints one line per shape and a JSON line; needs one CUDA card.
+
+    python3 kernel_ab.py --parent DIR --parallel [--seed N]
+
+runs, instead, `chip_smoke.py` phase 18 (the parallel phase: two processes
+sharing the card, their eval by both routes) of the parent and of this tree
+in turns, parent, tree, tree, parent, each in a process of its own with its
+own package, after the phases that give it its inputs (10: the eval set; 12:
+the step-0 weights and batch); each prints its readings as `chip_smoke.py`
+prints them.
 """
 
 from __future__ import annotations
@@ -196,13 +205,52 @@ def _agree(label: str, old, new, ref, tol: float) -> None:
         raise AssertionError(f"{label} disagrees with the plain version: {errs}")
 
 
+def phase18(root: Path, seed: int) -> int:
+    """`chip_smoke.py` phase 18 of the checkout at `root`, with its package, in
+    this process (which must not have imported `rgbdseg_torch` yet)."""
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", root / "chip_smoke.py")
+    smoke = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    from rgbdseg_torch.config import ModelConfig, PreprocessConfig
+    from rgbdseg_torch.inference.predictor import Predictor
+    from rgbdseg_torch.ops.kernels import build_all
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke.log(f"phase 18 of {root}: kernels built in {build_all():.1f} s [{smi}]")
+    rng = np.random.RandomState(seed)
+    pred = Predictor(ModelConfig(num_labels=40, version="0.4.0"), device="cuda", seed=seed,
+                     preprocess=PreprocessConfig(height=480, width=640))
+    eval_set = smoke.run_eval(rng, pred)
+    del pred
+    step0, micro, _ = smoke.run_train_full(seed, rng)
+    _, ms = smoke._timed(lambda: smoke.run_parallel(seed, rng, step0, micro[0], eval_set, root, card=smi))
+    smoke.log(f"phase 18 of {root}: {ms / 1e3:.1f} s [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True, help="checkout of the earlier commit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=10,
                     help="timed rounds of old/new/new/old requests, and of train steps")
+    ap.add_argument("--parallel", action="store_true",
+                    help="instead: chip_smoke.py phase 18 of the parent and of this tree in turns")
+    ap.add_argument("--phase18-of", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.phase18_of is not None:
+        return phase18(args.phase18_of.resolve(), args.seed)
+    if args.parallel:
+        here = Path(__file__).resolve().parent
+        return max(subprocess.run([sys.executable, __file__, "--parent", str(args.parent), "--seed", str(args.seed),
+                                   "--phase18-of", str(root)]).returncode
+                   for root in (args.parent, here, here, args.parent))
     import torch
 
     if not torch.cuda.is_available():

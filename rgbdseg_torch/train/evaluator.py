@@ -104,6 +104,14 @@ class Evaluator:
         # feed the metric the same numbers.
         return np.round(scores.astype(np.float64), 6), labels, darea, garea, inter
 
+    def device_stats_arrays(self, class_logits, mask_logits, gt_packed, valid, target_hw, gt_hw):
+        """`eval_stats` of (possibly one rank's rows of) logits and bit-packed GT,
+        read back to the host at once: the metric inputs of those rows as
+        numpy arrays. Synchronous, for the several-process eval
+        (`train/trainer.py::_update_gathered`), which gathers them now."""
+        return self._materialize_stats(
+            *self._dispatch_stats(class_logits, mask_logits, gt_packed, valid, target_hw, gt_hw))
+
     def update_from_stats(self, stats, gt_labels, gt_valid):
         """Per-image metric updates from the statistics' arrays."""
         scores, labels, darea, garea, inter = stats

@@ -63,10 +63,13 @@ built with `find_unused_parameters`: no gradient reaches the 0.4.0 backbone
 or its ratio predictor, whose gradients stay None and get the optimizer's zero
 and weight decay as in one process. Target compaction and packed targets are
 single-process only, as in the JAX package. Eval in several processes
-decodes the whole global batch on every rank, feeds the rank's rows and sums
-the IoU statistics over the data group, so every rank computes the same
-metrics. Rank 0 alone writes files; a checkpoint holds the full tensors of a
-sharded model, so it does not depend on the topology.
+decodes the whole global batch on every rank and feeds the rank's rows. As in
+the JAX Trainer, the IoU statistics of each rank's rows are gathered over the
+data group, or, under RGBDSEG_EVAL_DEVICE_STATS=0 or for images of several
+sizes evaluated at their original size, the logits are gathered for the host
+mask path; either way every rank computes the same metrics. Rank 0 alone
+writes files; a checkpoint holds the full tensors of a sharded model, so it
+does not depend on the topology.
 """
 
 from __future__ import annotations
@@ -87,7 +90,6 @@ from torch.nn.parallel import DistributedDataParallel
 from ..config import ModelConfig, PreprocessConfig
 from ..data.device_preprocess import build_from_packed, unpack_masks
 from ..data.pipeline import Batch, compact_targets
-from ..inference.postprocess import eval_stats
 from ..inference.predictor import resolve_device
 from ..models.mask2former import Mask2FormerRGBD, ModelOutputs
 from ..ops import kernels
@@ -315,25 +317,36 @@ def _rows(batch: Batch, start: int, stop: Optional[int] = None) -> Batch:
                                          for f in dataclasses.fields(batch)})
 
 
-def _update_gathered(evaluator: Evaluator, out: ModelOutputs, batch: Batch, real: int, mesh: Mesh) -> None:
-    """The several-process eval update (the JAX `_eval_update_multihost`): the
-    IoU and area statistics of this rank's rows computed on its device, summed
-    into the global batch's over the data group, the first `real` rows fed to
-    the metric on every rank."""
+def _update_gathered(evaluator: Evaluator, out: ModelOutputs, batch: Batch, real: int, mesh: Mesh) -> bool:
+    """The several-process device-stats eval update (the JAX
+    `_eval_update_multihost`): the IoU and area statistics of this rank's rows
+    computed on its device (`Evaluator.device_stats_arrays`), gathered to the
+    global batch's over the data group, the first `real` rows fed to the metric
+    on every rank. Returns False, having done nothing, where the JAX package
+    leaves the device statistics: RGBDSEG_EVAL_DEVICE_STATS other than "1", or
+    an evaluation at the original size over images of several sizes."""
+    if os.environ.get("RGBDSEG_EVAL_DEVICE_STATS", "1") != "1":
+        return False
     b, t, gh, gw = np.shape(batch.mask_labels)
+    target_hw = (gh, gw)
+    if evaluator.eval_at_original_size and batch.orig_sizes is not None:
+        sizes = {tuple(int(v) for v in s) for s in np.asarray(batch.orig_sizes)}
+        if len(sizes) != 1:
+            return False
+        target_hw = sizes.pop()
     start, stop = host_row_range(b, mesh)
     gt_packed = batch.mask_labels_packed
     if gt_packed is None:
         gt_packed = np.packbits(np.asarray(batch.mask_labels).astype(bool).reshape(b, t, -1), axis=-1)
     dev = out.class_queries_logits.device
-    stats = eval_stats(out.class_queries_logits, out.masks_queries_logits,
-                       torch.from_numpy(np.ascontiguousarray(gt_packed[start:stop])).to(dev),
-                       torch.from_numpy(np.asarray(batch.valid[start:stop], bool)).to(dev), (gh, gw), (gh, gw))
-    full = tuple(gather_rows(x, mesh)[:real].cpu() for x in stats)
+    stats = evaluator.device_stats_arrays(out.class_queries_logits, out.masks_queries_logits,
+                                          gt_packed[start:stop], np.asarray(batch.valid[start:stop], bool),
+                                          target_hw, (gh, gw))
+    full = tuple(gather_rows(torch.from_numpy(x).to(dev), mesh)[:real].cpu().numpy() for x in stats)
     evaluator.flush()
-    evaluator.update_from_stats(Evaluator._materialize_stats(full), np.asarray(batch.class_labels)[:real],
-                                np.asarray(batch.valid, bool)[:real])
+    evaluator.update_from_stats(full, np.asarray(batch.class_labels)[:real], np.asarray(batch.valid, bool)[:real])
     logger.info("multihost eval: device-stats path (rows=%d)", real)
+    return True
 
 
 @torch.no_grad()
@@ -368,10 +381,15 @@ def evaluate(
         losses.append(loss)
         real = b if num_examples is None else max(0, min(b, num_examples - seen))
         seen += b
-        if mesh is not None:
-            _update_gathered(evaluator, out, batch, real, mesh)
-        elif real:
-            evaluator.update(out.class_queries_logits[:real], out.masks_queries_logits[:real], _rows(batch, real))
+        if mesh is None:
+            if real:
+                evaluator.update(out.class_queries_logits[:real], out.masks_queries_logits[:real], _rows(batch, real))
+        elif not _update_gathered(evaluator, out, batch, real, mesh):
+            # the host mask path (the JAX `_host_np`): every rank gathers the
+            # global batch's logits and updates the metric as one process does
+            logits = [gather_rows(x, mesh)[:real] for x in (out.class_queries_logits, out.masks_queries_logits)]
+            if real:
+                evaluator.update(*logits, _rows(batch, real))
         n += real
     evaluator.flush()
     losses = torch.stack(losses).cpu().tolist()
