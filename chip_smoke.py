@@ -38,7 +38,10 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      then (5b) all four kernels with the bfloat16 operands the bf16 train step
      gives them, at B=2, the backward ones through torch.autograd.grad of their
      wrappers, each against its plain version on the same bfloat16 values,
-     timed beside the plain version and the library call in bfloat16;
+     timed beside the plain version and the library call in bfloat16; K1 on
+     bf16 V equal bit for bit to K1 on V.float(); K3's backward against the
+     plain backward in bf16, two launches with the same bits, and the effect
+     of its delta (rowsum(dO * O) against the JAX VJP's sum_k dP * P);
   6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
      480x640 frames (stacks built as in phase 4) with up to 16 box instances
@@ -83,6 +86,7 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
   13. bf16 step: from phase 12's weights and batch, one bf16 and one float32
      step: the kernels launched with bfloat16 operands in the bf16 step only,
      the gap in loss and gradient norm within a bound; 3 steady bf16 steps;
+     one more under the profiler: the port's kernels' share of device time;
   15. finetune: `finetune_torch.main` on a synthetic set written by the port's
      `data/synthetic.generate` (8 train and 4 valid 480x640 frames, 1-3
      objects each, 3 labels): the full-width 0.4.0 model, 2 epochs at batch 2,
@@ -198,10 +202,16 @@ SLICE_RTOL = 1e-3
 K1_BWD_RTOL = K3_BWD_RTOL = 1e-5
 # The backward kernels with bfloat16 operands (tests/test_torch_kernels.py): K1's
 # d value comes back in bfloat16, a rounding of each side, so 1e-2 x max |ref|
-# (d locations and d weights stay float32: K1_BWD_RTOL); K3 computes in float32
-# from the bfloat16 inputs and rounds d q, d k, d v to bfloat16, against the
-# float32 plain backward of the same bfloat16 values: 2e-2 x the largest |ref|.
-K1_BWD_RTOL_BF16_DV, K3_BWD_RTOL_BF16 = 1e-2, 2e-2
+# (d locations and d weights stay float32: K1_BWD_RTOL); K3 runs bf16 products
+# with P and dS rounded to bfloat16 where the JAX VJP rounds them, against the
+# plain backward in bfloat16 (torch's autograd rounds at the same points, and
+# dP too): 2e-2 x the largest |ref|. K3 also against the float32 plain backward
+# of the same bf16 values, which rounds nothing (so it is nearer the kernel than
+# the bf16 plain backward is): 1e-2 x the largest |ref|. Both hold on the
+# phase's inputs and on those of each seed in K3_BWD_SEEDS; PERF.md gives the
+# readings that set them.
+K1_BWD_RTOL_BF16_DV, K3_BWD_RTOL_BF16, K3_BWD_RTOL_BF16_F32 = 1e-2, 2e-2, 1e-2
+K3_BWD_SEEDS = (1, 2, 3, 4)
 TRAIN_B, TRAIN_T = 2, 16  # train batch and real instances per frame
 TRAIN_T_MAX = 32  # the train-full phase's padded slots (max_instances), compacted to the bucket of 16
 # The compacted and packed micro-step against the padded float one (phase 12):
@@ -647,11 +657,47 @@ def check_backward_kernels(rng, dev) -> dict:
     return rows
 
 
+def k3_bwd_delta_effect(q, k, v, m, ab, out, g, ref) -> str:
+    """The bf16 K3 backward's arithmetic written out in float32 on the card
+    (P and dS rounded to bf16, S and dP float32), once with the kernel's
+    delta = rowsum(dO * O) and once with the JAX VJP's sum_k dP * P; each
+    against the bf16 plain backward `ref`, relative to its largest |ref|."""
+    import torch
+
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    blocked = ((m < 0.0) & ~ab[:, :, None])[:, None]
+    p = torch.softmax((qf @ kf.transpose(-1, -2)).masked_fill(blocked, -1e9), dim=-1)
+    dp = gf @ vf.transpose(-1, -2)
+    scale = max(r.abs().max().item() for r in ref)
+    errs = {}
+    for label, delta in (("rowsum(dO*O)", (gf * out.float()).sum(-1, keepdim=True)),
+                         ("sum(dP*P)", (dp * p).sum(-1, keepdim=True))):
+        ds = (p * (dp - delta)).bfloat16().float()
+        grads = (ds @ kf, ds.transpose(-1, -2) @ qf, p.bfloat16().float().transpose(-1, -2) @ gf)
+        errs[label] = max((a - r.float()).abs().max().item() for a, r in zip(grads, ref)) / scale
+    return ", ".join(f"{k} {e:.3e} x max" for k, e in errs.items())
+
+
+def k3_bwd_bf16_errs(got, ref, ref32) -> tuple[float, float, float]:
+    """The bf16 K3 backward `got` against the bf16 plain backward `ref` and the
+    float32 one `ref32`, and `ref` against `ref32`: each the largest error over
+    d q, d k and d v over the largest |ref| (|ref32|) of the three."""
+    def rel(a, r):
+        r = [t.float() for t in r]
+        return max((x.float() - y).abs().max().item() for x, y in zip(a, r)) / max(y.abs().max().item() for y in r)
+
+    return rel(got, ref), rel(got, ref32), rel(ref, ref32)
+
+
 def check_bf16_kernels(rng, dev) -> list[dict]:
     """Phase 5b: the four kernels with the bfloat16 operands the bf16 train step
     gives them (value for K1; q, k, v and d out for K3), at its shapes (B=2),
     each against its plain version on the same bfloat16 values; the backward
-    kernels through `torch.autograd.grad` of their wrappers. Device ms from a
+    kernels through `torch.autograd.grad` of their wrappers. K1 on bf16 V also
+    equals K1 on V.float() bit for bit; K3's backward gives the same bits in
+    two launches and bf16 gradients straight from the kernels, and is also held
+    against the float32 plain backward of its bf16 values, on the phase's
+    inputs and on those of K3_BWD_SEEDS. Device ms from a
     CUDA graph, eager ms, the plain version's ms and the library call's in
     bfloat16 (grid_sample and its aten backward, SDPA), and the bound with
     bfloat16 bytes (operations: K1 float32 FMAs, K3 at the bfloat16 tensor-core
@@ -694,10 +740,16 @@ def check_bf16_kernels(rng, dev) -> list[dict]:
                     .contiguous())
         grids.append((loc[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(TRAIN_B * NH, L, P, 2) * 2 - 1)
                      .bfloat16().contiguous())
-    err = _check("bf16 deform_sample_levels", KD.deform_sample_levels(vb, LEVELS, loc, weights),
-                 KD.deform_sample_levels_plain(vb, LEVELS, loc, weights), K1_TOL["bfloat16"])
-    log(f"kernel f32 deform_sample_levels all levels B={TRAIN_B} (the bf16 row's shape, for comparison): ms "
-        f"{time_ms(lambda: KD.deform_sample_levels(value, LEVELS, loc, weights)):.4f}")
+    got = KD.deform_sample_levels(vb, LEVELS, loc, weights)
+    err = _check("bf16 deform_sample_levels", got, KD.deform_sample_levels_plain(vb, LEVELS, loc, weights),
+                 K1_TOL["bfloat16"])
+    # The widening is exact and the arithmetic the f32 route's: the same bits as V.float().
+    vw = vb.float()
+    if not torch.equal(got, KD.deform_sample_levels(vw, LEVELS, loc, weights)):
+        raise AssertionError("bf16 K1: bf16 V differs from the f32 route on V.float()")
+    log(f"kernel bf16 deform_sample_levels equals the f32-V kernel on V.float() bit for bit; f32 V all levels "
+        f"B={TRAIN_B} (the bf16 row's shape, for comparison): ms "
+        f"{time_ms(lambda: KD.deform_sample_levels(vw, LEVELS, loc, weights)):.4f}")
     report("deform_sample_levels", "all levels", err, lambda: KD.deform_sample_levels(vb, LEVELS, loc, weights),
            lambda: KD.deform_sample_levels_plain(vb, LEVELS, loc, weights),
            lambda: time_ms(lambda: [F.grid_sample(i, gr, align_corners=False) for i, gr in zip(imgs, grids)]),
@@ -736,12 +788,41 @@ def check_bf16_kernels(rng, dev) -> list[dict]:
                BF16_FLOP_PER_S)
         got = autograd_grads("masked_attention", lambda a, b_, c: KM.masked_cross_attention(a, b_, c, m, ab),
                              (qb, kb, vb_), gb)
-        if any(t.dtype != torch.bfloat16 for t in got):
-            raise AssertionError("bf16 K3 backward: gradients not in bfloat16")
-        ref = KM.masked_cross_attention_plain_bwd(qb.float(), kb.float(), vb_.float(), m, ab, gb.float())
-        err = _check_grads(f"bf16 masked_cross_attention_bwd K={nk}", [t.float() for t in got], ref,
-                           K3_BWD_RTOL_BF16, joint=True)
+        again = autograd_grads("masked_attention", lambda a, b_, c: KM.masked_cross_attention(a, b_, c, m, ab),
+                               (qb, kb, vb_), gb)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"bf16 masked_cross_attention_bwd K={nk}: two launches give different bits")
         out, lse = KM._launch(qb, kb, vb_, m, ab)
+        if any(t.dtype != torch.bfloat16 for t in (*got, *KM._launch_bwd(qb, kb, vb_, m, ab, out, lse, gb))):
+            raise AssertionError("bf16 K3 backward: gradients not in bfloat16 from the kernels")
+        # Against the plain backward in bf16 (P, dP and dS rounded as the JAX VJP rounds them) and against
+        # the float32 plain backward of the same bf16 values.
+        ref = KM.masked_cross_attention_plain_bwd(qb, kb, vb_, m, ab, gb)
+        err = _check_grads(f"bf16 masked_cross_attention_bwd K={nk} vs bf16 plain", [t.float() for t in got],
+                           [t.float() for t in ref], K3_BWD_RTOL_BF16, joint=True)
+        ref32 = KM.masked_cross_attention_plain_bwd(qb.float(), kb.float(), vb_.float(), m, ab, gb.float())
+        _check_grads(f"bf16 masked_cross_attention_bwd K={nk} vs f32 plain", [t.float() for t in got], ref32,
+                     K3_BWD_RTOL_BF16_F32, joint=True)
+        readings = [k3_bwd_bf16_errs(got, ref, ref32)]
+        for seed in K3_BWD_SEEDS:
+            q2, k2, v2, m2, ab2 = mca_inputs(np.random.RandomState(seed), nk, dev, TRAIN_B)
+            q2, k2, v2 = q2.bfloat16(), k2.bfloat16(), v2.bfloat16()
+            g2 = torch.from_numpy(np.random.RandomState(seed).randn(*q2.shape).astype(np.float32)).to(dev).bfloat16()
+            got2 = autograd_grads("masked_attention", lambda a, b_, c: KM.masked_cross_attention(a, b_, c, m2, ab2),
+                                  (q2, k2, v2), g2)
+            readings.append(k3_bwd_bf16_errs(
+                got2, KM.masked_cross_attention_plain_bwd(q2, k2, v2, m2, ab2, g2),
+                KM.masked_cross_attention_plain_bwd(q2.float(), k2.float(), v2.float(), m2, ab2, g2.float())))
+        worst = [max(r[i] for r in readings) for i in range(3)]
+        log(f"kernel bf16 masked_cross_attention_bwd K={nk}: two launches give the same bits; x max |ref|, joint, "
+            f"on the phase's inputs and seeds {K3_BWD_SEEDS}: kernel vs bf16 plain "
+            f"{' '.join(f'{r[0]:.3e}' for r in readings)} (tol {K3_BWD_RTOL_BF16:g}); kernel vs f32 plain "
+            f"{' '.join(f'{r[1]:.3e}' for r in readings)} (tol {K3_BWD_RTOL_BF16_F32:g}); bf16 plain vs f32 plain "
+            f"{' '.join(f'{r[2]:.3e}' for r in readings)}; delta choice: "
+            f"{k3_bwd_delta_effect(qb, kb, vb_, m, ab, out, gb, ref)}")
+        if not (worst[0] <= K3_BWD_RTOL_BF16 and worst[1] <= K3_BWD_RTOL_BF16_F32):
+            raise AssertionError(f"bf16 masked_cross_attention_bwd K={nk}: over the seeds {worst[:2]} x max |ref| > "
+                                 f"({K3_BWD_RTOL_BF16}, {K3_BWD_RTOL_BF16_F32})")
         qkv = [t.detach().requires_grad_() for t in (qb, kb, vb_)]
 
         def lib_fwd():
@@ -803,10 +884,11 @@ def profile_request(pred, frame, top: int = 15) -> None:
     profile_call("request", lambda: pred.predict_pixels(frame, threshold=0.0), top)
 
 
-def profile_call(label: str, fn, top: int = 15) -> None:
+def profile_call(label: str, fn, top: int = 15) -> tuple[float, float, float]:
     """One call of `fn` under torch.profiler: the device's busy share of the
     wall time and the kernels that take the most device time (profiler
-    overhead included in the wall time)."""
+    overhead included in the wall time). Returns (wall ms, device busy ms,
+    the port's kernels' device ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -823,12 +905,20 @@ def profile_call(label: str, fn, top: int = 15) -> None:
     log(f"profile: {label} wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device events")
     names = (r"deform_sample_bwd_kernel|deform_sample_kernel|mca_split_kernel|mca_combine_kernel|mca_bwd_dq_kernel"
-             r"|mca_bwd_mask_kernel|mca_bwd_kernel")
-    port = {m.group(0): e for e in kernels for m in [re.search(names, e.key)] if m}
-    log(f"profile: port kernels {sum(e.self_device_time_total for e in port.values()) / 1e3:.3f} ms of device "
-        "time: " + ", ".join(f"{k} {e.self_device_time_total / 1e3:.3f} ms {e.count}x" for k, e in port.items()))
+             r"|mca_bwd_mask_kernel|mca_bwd_bf16_kernel|mca_bwd_kernel")
+    port = {}  # by kernel name, over its instantiations: [device us, count]
+    for e in kernels:
+        m = re.search(names, e.key)
+        if m:
+            acc = port.setdefault(m.group(0), [0.0, 0])
+            acc[0] += e.self_device_time_total
+            acc[1] += e.count
+    port_ms = sum(us for us, _ in port.values()) / 1e3
+    log(f"profile: port kernels {port_ms:.3f} ms of device time ({100 * port_ms / busy:.1f}%): "
+        + ", ".join(f"{k} {us / 1e3:.3f} ms {n}x" for k, (us, n) in port.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"profile: {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x  {e.key[:90]}")
+    return wall, busy, port_ms
 
 
 def run_slice(seed: int, rng, profile: bool = False):
@@ -1588,7 +1678,8 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     one optimizer step under the bf16 policy and one in float32: both finite, the
     kernels launched with bfloat16 operands in the bf16 step only, the relative
     gap in loss and gradient norm within BF16_GAP_BOUND; then 3 steady steps of
-    each policy, timed (with `profile`, a fourth of each under the profiler)."""
+    each policy, timed, and a fourth bf16 step under the profiler for the
+    port's kernels' share of device time (with `profile`, a float32 one too)."""
     import torch
 
     from rgbdseg_torch.config import ModelConfig, PreprocessConfig
@@ -1614,7 +1705,7 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
 
     (kd_orig, kd_launch), (km_orig, km_launch) = counting(KD), counting(KM)
     KD.launch, KM.launch = kd_launch, km_launch
-    readings, times = {}, {}
+    readings, times, shares = {}, {}, {}
     try:
         for bf16 in (True, False):
             model, opt = build_training(cfg, TrainingArguments(learning_rate=1e-4, weight_decay=0.05, bf16=bf16,
@@ -1625,9 +1716,9 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
             loss, _, norm = train_step(model, opt, micro[0], gen, pp)
             readings[bf16] = (loss.item(), norm.item(), dict(by_dtype))
             times[bf16] = [_timed(lambda: train_step(model, opt, micro[i % 2], gen, pp))[1] for i in range(4)][1:]
-            if profile:
-                profile_call(f"{'bf16' if bf16 else 'float32'} train step (one micro-batch)",
-                             lambda: train_step(model, opt, micro[0], gen, pp))
+            if profile or bf16:  # the bf16 step always: its kernels' share of device time
+                shares[bf16] = profile_call(f"{'bf16' if bf16 else 'float32'} train step (one micro-batch)",
+                                            lambda: train_step(model, opt, micro[0], gen, pp), top=15 if profile else 5)
             del model, opt
     finally:
         KD.launch, KM.launch = kd_orig, km_orig
@@ -1647,6 +1738,9 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     log(f"bf16 step: steady steps of one micro-batch (batch {TRAIN_B}, packed and compacted): bf16 "
         f"{[round(x, 2) for x in times[True]]} ms, float32 {[round(x, 2) for x in times[False]]} ms; steady float32 "
         f"optimizer steps of 2 micro-batches (phase 12) {[round(x, 2) for x in steady_f32]} ms")
+    wall, busy, port_ms = shares[True]
+    log(f"bf16 step: under the profiler {wall:.2f} ms, device busy {busy:.2f} ms; the port's kernels (bf16 operands) "
+        f"{port_ms:.3f} ms = {100 * port_ms / busy:.1f}% of device time, {100 * port_ms / wall:.2f}% of the step")
 
 
 def run_finetune(seed: int, out_dir: Path):
@@ -2975,8 +3069,8 @@ def main(argv=None) -> int:
 
     log(f"build: {K.build_all():.1f} s")
     for name, text in K.BUILD_LOG.items():
-        regs = [ln.split("info    : ")[-1] for ln in text.splitlines() if "registers" in ln]
-        log(f"build {name}: {'; '.join(regs)}")
+        for line in K.ptxas_report(text):
+            log(f"build {name}: {line}")
 
     rng = np.random.RandomState(args.seed)
     dev = torch.device("cuda")

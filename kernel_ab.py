@@ -1,6 +1,6 @@
 """Time the port's CUDA kernels against an earlier commit's, in one process on one card.
 
-    python3 kernel_ab.py --parent DIR [--seed N] [--requests N]
+    python3 kernel_ab.py --parent DIR [--seed N] [--requests N] [--kernels-only]
 
 DIR is a checkout of the earlier commit (e.g. `git archive <commit>` unpacked
 into `build/parent`). Its package is imported under another name and builds
@@ -10,27 +10,31 @@ graph) and as eager time per call from Python (see `chip_smoke.py`), and both
 are held against the plain version first. Sections, each run where the parent
 has what it needs (else it says so and is skipped):
 
-- forward, for a parent from the first slice of the port (its
-  `ops.kernels.deformable` has `deform_sample_level`, one K1 launch per level
-  on per-level pixel coordinates, and no `deform_sample_levels`): K1 and K3 at
-  the shapes of a 480x640 0.4.0 request, K1 at the in-model sampling geometry.
-  The old K1 time is one encoder layer's three per-level calls on inputs laid
-  out beforehand, and separately the old call site, which also lays them out
-  (permutes, copies, the sum over levels); the new time is the one call an
-  encoder layer makes now.
+- trace: for both commits, the registers, stack frame and shared memory of
+  every kernel instantiation as its binary records them (`cuobjdump
+  -res-usage`), and the local-memory (LDL, STL) and tensor-core (HMMA, by
+  operand kind) instructions in its SASS (`cuobjdump -sass`).
+- forward, for a parent with the one-launch K1 (`deform_sample_levels`): K1
+  (one encoder layer, 3 levels, in-model geometry) and K3 at K = 300, 1200
+  and 4800, at B=2, with float32 and with bfloat16 operands; whether old and
+  new give the same bits, and whether the new K1 on bf16 V gives the bits of
+  its f32 route on V.float().
 - backward, for a parent with backward kernels (`_launch_bwd` in both kernel
   modules, the third slice's signatures): the launch each autograd backward
-  makes, at the train shapes (B=2): K1 at the in-model and the "spread"
+  makes, at the train shapes (B=2), float32 and bfloat16 operands (bf16 held
+  against the plain backward in bf16): K1 at the in-model and the "spread"
   geometries (`chip_smoke.k1_inputs`), K3 at K = 300, 1200 and 4800 on the
-  log-sum-exp of this tree's forward.
-- requests: both commits' full-width 0.4.0 models, with the same seeded
-  weights, serve the same 480x640 frame in turns old, new, new, old
-  (`--requests` rounds): median request ms of each, and their logits'
-  difference.
-- train steps, for a parent with `train.trainer.train_step`: both commits'
-  full-width models, with the same seeded weights, take `chip_smoke.py`
-  phase 6's train step (batch 2 of 480x640 float stacks, 16 box slots) in
-  turns old, new, new, old (`--requests` rounds): median step ms of each.
+  log-sum-exp of this tree's forward; whether old and new give the same bits
+  (K1's d value apart: float atomics).
+- requests (not with --kernels-only): both commits' full-width 0.4.0 models,
+  with the same seeded weights, serve the same 480x640 frame in turns old,
+  new, new, old (`--requests` rounds): median request ms of each, and their
+  logits' difference.
+- train steps (not with --kernels-only), for a parent with
+  `train.trainer.train_step`: both commits' full-width models, with the same
+  seeded weights, take `chip_smoke.py` phase 6's train step (batch 2 of
+  480x640 float stacks, 16 box slots) in turns old, new, new, old
+  (`--requests` rounds): median step ms of each.
 
 Prints one line per shape and a JSON line; needs one CUDA card.
 
@@ -50,6 +54,9 @@ import argparse
 import importlib
 import importlib.util
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -74,7 +81,10 @@ def load_parent(parent: Path):
 
 def backward_ab(old_deform, old_mca, rng) -> list[dict]:
     """The backward section: the parent's and this tree's backward launches at the
-    train shapes, each held against the plain backward first."""
+    train shapes, float32 and bfloat16 operands, each held against the plain
+    backward first (bf16: the plain backward in bf16). Where this tree left a
+    route as it was, its outputs must have the parent's bits (K1's d value
+    apart, which float atomics add in a varying order)."""
     import torch
 
     from rgbdseg_torch.ops.kernels import deformable as KD
@@ -86,33 +96,55 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
     for geometry in ("model", "spread"):
         value, loc, weights = cs.k1_inputs(rng, dev, geometry, cs.TRAIN_B)
         g = torch.from_numpy(rng.randn(cs.TRAIN_B, cs.L, cs.NH * cs.HD).astype(np.float32)).to(dev)
+        for vt, dv_rtol in ((value, cs.K1_BWD_RTOL), (value.bfloat16(), cs.K1_BWD_RTOL_BF16_DV)):
+            dtype = str(vt.dtype).replace("torch.", "")
 
-        def old():
-            return old_deform._launch_bwd(value, loc, weights, cs.LEVELS, starts, True, g)
+            def old():
+                return old_deform._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g)
 
-        def new():
-            return KD._launch_bwd(value, loc, weights, cs.LEVELS, starts, True, g)
+            def new():
+                return KD._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g)
 
-        ref = KD.deform_sample_levels_plain_bwd(value, cs.LEVELS, loc, weights, g)
-        for label, fn in (("old", old), ("new", new)):
-            cs._check_grads(f"ab K1-bwd {geometry} {label}", fn(), ref, cs.K1_BWD_RTOL)
-        rows.append(dict(kernel="K1-bwd", **ab(f"K1-bwd one encoder layer, {geometry} geometry, B={cs.TRAIN_B}",
-                                                 old, new)))
+            ref = KD.deform_sample_levels_plain_bwd(vt, cs.LEVELS, loc, weights, g)
+            outs = {}
+            for label, fn in (("old", old), ("new", new)):
+                outs[label] = fn()
+                cs._check_grads(f"ab K1-bwd {geometry} {dtype} {label} d value", outs[label][:1], ref[:1], dv_rtol)
+                cs._check_grads(f"ab K1-bwd {geometry} {dtype} {label} d loc, d weights", outs[label][1:], ref[1:],
+                                cs.K1_BWD_RTOL)
+            same = all(torch.equal(a, b) for a, b in zip(outs["old"][1:], outs["new"][1:]))
+            cs.log(f"ab K1-bwd {geometry} {dtype}: d loc and d weights old == new bit for bit: {same}")
+            rows.append(dict(kernel="K1-bwd", dtype=dtype, same_bits=same, **ab(
+                f"K1-bwd one encoder layer, {geometry} geometry, {dtype} V, B={cs.TRAIN_B}", old, new)))
     for nk in cs.KEYS:
         q, k, v, m, ab_ = cs.mca_inputs(rng, nk, dev, cs.TRAIN_B)
         g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).to(dev)
-        out, lse = KM._launch(q, k, v, m, ab_)
+        for dt, rtol in ((torch.float32, cs.K3_BWD_RTOL), (torch.bfloat16, cs.K3_BWD_RTOL_BF16)):
+            qd, kd, vd, gd = (t.to(dt) for t in (q, k, v, g))
+            out, lse = KM._launch(qd, kd, vd, m, ab_)
+            dtype = str(dt).replace("torch.", "")
 
-        def old():
-            return old_mca._launch_bwd(q, k, v, m, ab_, out, lse, g)
+            def old():
+                return old_mca._launch_bwd(qd, kd, vd, m, ab_, out, lse, gd)
 
-        def new():
-            return KM._launch_bwd(q, k, v, m, ab_, out, lse, g)
+            def new():
+                return KM._launch_bwd(qd, kd, vd, m, ab_, out, lse, gd)
 
-        ref = KM.masked_cross_attention_plain_bwd(q, k, v, m, ab_, g)
-        for label, fn in (("old", old), ("new", new)):
-            cs._check_grads(f"ab K3-bwd K={nk} {label}", fn(), ref, cs.K3_BWD_RTOL, joint=True)
-        rows.append(dict(kernel="K3-bwd", **ab(f"K3-bwd K={nk} B={cs.TRAIN_B}", old, new)))
+            ref = [r.float() for r in KM.masked_cross_attention_plain_bwd(qd, kd, vd, m, ab_, gd)]
+            outs = {}
+            for label, fn in (("old", old), ("new", new)):
+                outs[label] = fn()
+                cs._check_grads(f"ab K3-bwd K={nk} {dtype} {label}", [t.float() for t in outs[label]], ref, rtol,
+                                joint=True)
+            same = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
+            cs.log(f"ab K3-bwd K={nk} {dtype}: old == new bit for bit: {same}; dtypes old "
+                   f"{[str(t.dtype) for t in outs['old']]}, new {[str(t.dtype) for t in outs['new']]}")
+            split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
+            for label, ms in split.items():
+                cs.log(f"ab K3-bwd K={nk} {dtype} {label} per kernel: "
+                       + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+            rows.append(dict(kernel="K3-bwd", dtype=dtype, same_bits=same, kernels_ms=split,
+                             **ab(f"K3-bwd K={nk} {dtype} B={cs.TRAIN_B}", old, new)))
     torch.cuda.synchronize()
     return rows
 
@@ -187,6 +219,23 @@ def train_ab(seed: int, rng, n: int) -> dict:
     return {"median_ms": med, "ms": times}
 
 
+def kernel_split(fn, n: int = 20) -> dict:
+    """Device ms per call of each kernel `fn` launches, from torch.profiler over n calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:48]:
+            e.self_device_time_total / n / 1e3 for e in sorted(events, key=lambda e: -e.self_device_time_total)}
+
+
 def ab(label: str, old, new, iters: int = 50) -> dict:
     """Device ms (CUDA graph) and eager ms per call, each in the order old, new, new, old."""
     row = {"shape": label}
@@ -240,6 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=10,
                     help="timed rounds of old/new/new/old requests, and of train steps")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="the trace and the kernel sections only (no requests, no train steps)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead: chip_smoke.py phase 18 of the parent and of this tree in turns")
     ap.add_argument("--phase18-of", type=Path, default=None, help=argparse.SUPPRESS)
@@ -265,75 +316,139 @@ def main(argv=None) -> int:
     cs.log(f"device: {smi}; parent {args.parent}; TF32 off")
     build_all()
     old_deform, old_mca, old_predictor = load_parent(args.parent.resolve())
+    parent_kernels = importlib.import_module("parent_rgbdseg_torch.ops.kernels")
+    parent_kernels.build_all()
+    traced = trace(parent_kernels)
     rng = np.random.RandomState(args.seed)
     rows = []
+    if hasattr(old_deform, "deform_sample_levels"):
+        rows += forward_ab(old_deform, old_mca, rng)
+    else:
+        cs.log("ab: the parent has no one-launch K1 forward; forward section skipped")
     if all(hasattr(mod, "_launch_bwd") for mod in (old_deform, old_mca)):
         rows += backward_ab(old_deform, old_mca, rng)
     else:
         cs.log("ab: the parent has no backward kernels; backward section skipped")
-    if hasattr(old_deform, "deform_sample_levels"):
-        cs.log("ab: the parent already has the one-launch K1 forward; forward section skipped")
-    else:
-        rows += forward_ab(old_deform, old_mca, rng)
     torch.cuda.synchronize()
-    e2e = requests_ab(old_predictor, args.seed, rng, args.requests)
-    steps = None
-    if hasattr(importlib.import_module("parent_rgbdseg_torch.train.trainer"), "train_step"):
-        steps = train_ab(args.seed, rng, args.requests)
-    else:
-        cs.log("ab: the parent has no train step; train section skipped")
-    print(json.dumps({"device": smi, "ab": rows, "requests": e2e, "train_steps": steps}))
+    e2e = steps = None
+    if not args.kernels_only:
+        e2e = requests_ab(old_predictor, args.seed, rng, args.requests)
+        if hasattr(importlib.import_module("parent_rgbdseg_torch.train.trainer"), "train_step"):
+            steps = train_ab(args.seed, rng, args.requests)
+        else:
+            cs.log("ab: the parent has no train step; train section skipped")
+    print(json.dumps({"device": smi, "trace": traced, "ab": rows, "requests": e2e, "train_steps": steps}))
     return 0
 
 
 def forward_ab(old_deform, old_mca, rng) -> list[dict]:
-    """The forward section, against a parent from the first slice of the port."""
+    """The forward section: K1 (one encoder layer, all levels, in-model
+    geometry) and K3 of the parent and of this tree at the bf16 step's shapes
+    (B=2), float32 and bfloat16 operands, each held against the plain version
+    first; whether old and new give the same bits, and (bf16 V) whether the new
+    K1 gives the bits of its f32 route on V.float()."""
     import torch
 
-    from rgbdseg_torch.ops.kernels.deformable import deform_sample_levels, deform_sample_levels_plain
-    from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention, masked_cross_attention_plain
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
 
+    dev = torch.device("cuda")
     rows = []
-    value, loc, weights = cs.k1_inputs(rng, torch.device("cuda"), "model")
-    levels = [cs.k1_level(value, loc, weights, lvl) for lvl in range(len(cs.LEVELS))]
+    value, loc, weights = cs.k1_inputs(rng, dev, "model", cs.TRAIN_B)
+    for vt in (value, value.bfloat16()):
+        dtype = str(vt.dtype).replace("torch.", "")
 
-    def old_kernels():  # one encoder layer's three per-level calls, inputs laid out beforehand
-        return [old_deform.deform_sample_level(*lv, h, w) for (h, w), lv in zip(cs.LEVELS, levels)]
+        def old():
+            return old_deform.deform_sample_levels(vt, cs.LEVELS, loc, weights)
 
-    def old_call_site():  # the earlier DeformableAttention body around the kernel
-        out = torch.zeros(1, cs.NH, cs.L, cs.HD, device="cuda")
-        start = 0
-        wt = weights.permute(0, 2, 1, 3, 4)
-        for lvl, (h, w) in enumerate(cs.LEVELS):
-            vbh = value[:, start : start + h * w].permute(0, 2, 1, 3).reshape(cs.NH, h * w, cs.HD).contiguous()
-            coords = loc[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(cs.NH, cs.L, cs.P, 2)
-            gx = (coords[..., 0] * w - 0.5).contiguous()
-            gy = (coords[..., 1] * h - 0.5).contiguous()
-            aw = wt[:, :, :, lvl].reshape(cs.NH, cs.L, cs.P).float().contiguous()
-            sampled = old_deform.deform_sample_level(gx, gy, aw, vbh, h, w)
-            out = out + sampled.reshape(1, cs.NH, cs.L, cs.HD)
-            start += h * w
-        return out.permute(0, 2, 1, 3).reshape(1, cs.L, cs.NH * cs.HD)
+        def new():
+            return KD.deform_sample_levels(vt, cs.LEVELS, loc, weights)
 
-    def new():
-        return deform_sample_levels(value, cs.LEVELS, loc, weights)
-
-    _agree("K1", old_call_site, new, deform_sample_levels_plain(value, cs.LEVELS, loc, weights), cs.K1_TOL["float32"])
-    rows.append(dict(kernel="K1", **ab("K1 one encoder layer, 3 levels (old: 3 calls)", old_kernels, new)))
-    rows.append(dict(kernel="K1", **ab("K1 one encoder layer, old call site with its layout ops", old_call_site, new)))
-
+        _agree(f"K1 {dtype}", old, new, KD.deform_sample_levels_plain(vt, cs.LEVELS, loc, weights),
+               cs.K1_TOL[dtype])
+        same = torch.equal(old(), new())
+        widened = torch.equal(new(), KD.deform_sample_levels(vt.float(), cs.LEVELS, loc, weights))
+        cs.log(f"ab K1 {dtype}: old == new bit for bit: {same}; new == new f32 route on V.float(): {widened}")
+        rows.append(dict(kernel="K1", dtype=dtype, same_bits=same, equals_f32_route=widened,
+                         **ab(f"K1 one encoder layer, 3 levels, {dtype} V, B={cs.TRAIN_B}", old, new)))
     for nk in cs.KEYS:
-        q, k, v, m, ab_ = cs.mca_inputs(rng, nk, torch.device("cuda"))
+        q, k, v, m, ab_ = cs.mca_inputs(rng, nk, dev, cs.TRAIN_B)
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            dtype = str(dt).replace("torch.", "")
 
-        def old_k3():
-            return old_mca.masked_cross_attention(q, k, v, m, ab_)
+            def old():
+                return old_mca.masked_cross_attention(qd, kd, vd, m, ab_)
 
-        def new_k3():
-            return masked_cross_attention(q, k, v, m, ab_)
+            def new():
+                return KM.masked_cross_attention(qd, kd, vd, m, ab_)
 
-        _agree(f"K3 K={nk}", old_k3, new_k3, masked_cross_attention_plain(q, k, v, m, ab_), cs.K3_TOL)
-        rows.append(dict(kernel="K3", **ab(f"K3 K={nk}", old_k3, new_k3)))
+            ref = KM.masked_cross_attention_plain(qd, kd, vd, m, ab_).float()
+            _agree(f"K3 K={nk} {dtype}", lambda: old().float(), lambda: new().float(), ref,
+                   cs.K3_TOL if dt == torch.float32 else cs.K3_TOL_BF16)
+            same = torch.equal(old(), new())
+            cs.log(f"ab K3 K={nk} {dtype}: old == new bit for bit: {same}")
+            rows.append(dict(kernel="K3", dtype=dtype, same_bits=same,
+                             **ab(f"K3 K={nk} {dtype} B={cs.TRAIN_B}", old, new)))
+    torch.cuda.synchronize()
     return rows
+
+
+def trace(parent_kernels) -> dict:
+    """What each commit's kernels compiled to: per instantiation the registers,
+    stack frame and static shared memory the binary records (`cuobjdump
+    -res-usage`), and its SASS's local-memory (LDL, STL) and tensor-core
+    (HMMA, by kind) instructions."""
+    from rgbdseg_torch.ops import kernels as K
+
+    report = {}
+    for label, mod in (("old", parent_kernels), ("new", K)):
+        for name in mod._SIGNATURES:
+            lib = mod._target(name)
+            usage, sass = res_usage(lib), sass_counts(lib)
+            for fn, res in usage.items():
+                cs.log(f"trace {label} {name}: {fn}: {res}; SASS {sass.get(fn)}")
+            report[f"{label} {name}"] = {"res_usage": usage, "sass": sass}
+    return report
+
+
+def _cuobjdump(*args) -> str:
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    return subprocess.run([tool, *args], capture_output=True, text=True, check=True).stdout
+
+
+def res_usage(lib: Path) -> dict:
+    """{kernel: "REG:n STACK:n SHARED:n LOCAL:n ..."} from `cuobjdump -res-usage`."""
+    from rgbdseg_torch.ops.kernels import _demangle
+
+    usage, fn = {}, None
+    for ln in _cuobjdump("-res-usage", str(lib)).splitlines():
+        if "Function " in ln:
+            fn = ln.split("Function ")[-1].strip().rstrip(":")
+        elif fn is not None and "REG:" in ln:
+            usage[fn] = " ".join(ln.split())
+            fn = None
+    names = _demangle(list(usage))
+    return {names[k]: v for k, v in usage.items()}
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: {"LDL": n, "STL": n, "HMMA.<shape>.<types>": n, ...}} from
+    `cuobjdump -sass` of a built library: local-memory instructions and the
+    tensor-core instructions by kind (TF32 or BF16 operands)."""
+    from rgbdseg_torch.ops.kernels import _demangle
+
+    counts, fn = {}, None
+    for ln in _cuobjdump("-sass", str(lib)).splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[-1].strip()
+            counts[fn] = {"LDL": 0, "STL": 0}
+        elif fn is not None:
+            m = re.search(r"\b(LDL|STL|HMMA\.[\w.]+)", ln)
+            if m:
+                counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    names = _demangle(list(counts))
+    return {names[k]: v for k, v in counts.items()}
 
 
 if __name__ == "__main__":

@@ -28,19 +28,29 @@
 // FMAs (< 0.1 GFLOP) are far below that.
 //
 // Design: one launch per encoder layer for all levels, on the layouts the layer
-// produces (no per-level permutes or copies around it). hd / 4 lanes own one
-// (query, head) pair, each lane a float4 of channels (8 lanes, 4 pairs per warp
-// at hd = 32), so every corner read is one coalesced 128-byte row of V. A block
+// produces (no per-level permutes or copies around it). Lanes own 16 bytes of
+// channels each: hd / 4 lanes per (query, head) pair with a float4 each (8
+// lanes, 4 pairs per warp at hd = 32) for f32 V, hd / 8 with 8 bf16 each (4
+// lanes, 8 pairs per warp) for bf16 V (hd 16: 4 bf16, 8 bytes), so every
+// corner read is one coalesced row of V (128 bytes f32, 64 bf16). A block
 // takes 32 neighbouring queries of one head, which sample overlapping V rows
 // (queries arrive in raster order and sample a few pixels from their reference
 // point), so repeated rows come from L1 and L2. The per-point arithmetic is not
 // repeated on every lane of a pair: per level, each lane computes 4 * P / (hd / 4)
 // of the pair's corners (pixel index and weight, from its point's coordinates
-// and weight), the pair's lanes exchange them with width-(hd / 4) shuffles, and
+// and weight), the pair's lanes exchange them with shuffles within the pair, and
 // each lane then issues all 4 * P corner loads of the level before any FMA. nl
 // and P are template constants. Accumulation is f32; V may be float32 or
 // bfloat16. At the in-model geometry it still moves about 10x the bytes of its
 // bound through L1 (each corner row is requested once per query that needs it).
+//
+// bf16 V: widening each corner as it is loaded (a bf16 pair read through a
+// register's address) leads ptxas to 169 registers at hd 32 and 3 levels, one
+// block of 256 threads per SM against the f32 kernel's 44 registers and five
+// blocks, and the latency-bound gather then takes 3.6x the f32 time. Raw
+// words widened at the FMAs, loaded 16 bytes at a time, take 58 registers
+// (four blocks per SM) and half the f32 route's lanes per pair, and run below
+// the f32 time with the f32 route's bits on V.float().
 //
 // Points whose footprint lies wholly outside the map contribute zero and are
 // skipped before any float->int conversion (this also skips NaN coordinates).
@@ -60,22 +70,58 @@ struct Levels {
   int start[kMaxLevels];
 };
 
-__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// A lane's channels of one V row as the raw words one 16-byte (or, for bf16 at
+// hd 16, 8-byte) load returns: a float4, or a uint4 (uint2) of 8 (4) bf16.
+// The words stay in registers until every load of the level is issued, and
+// are widened at the FMAs: bf16 -> float32 is exact as a shift or a mask of
+// the word, so bf16 V gives the bits of V.float().
+template <typename T, int V>
+struct RawT;
+template <>
+struct RawT<float, 4> { using type = float4; };
+template <>
+struct RawT<__nv_bfloat16, 4> { using type = uint2; };
+template <>
+struct RawT<__nv_bfloat16, 8> { using type = uint4; };
+
+template <typename T, int HD>
+constexpr int kVec = (sizeof(T) == 2 && HD >= 32) ? 8 : 4;  // channels per lane
+
+template <typename T, int V>
+__device__ __forceinline__ typename RawT<T, V>::type ldg_raw(const T* p) {
+  return __ldg(reinterpret_cast<const typename RawT<T, V>::type*>(p));
+}
+__device__ __forceinline__ void widen(float4 x, float* o) {
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+__device__ __forceinline__ void widen(uint32_t u, float* o) {
+  o[0] = __uint_as_float(u << 16);
+  o[1] = __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ void widen(uint2 u, float* o) {
+  widen(u.x, o);
+  widen(u.y, o + 2);
+}
+__device__ __forceinline__ void widen(uint4 u, float* o) {
+  widen(u.x, o);
+  widen(u.y, o + 2);
+  widen(u.z, o + 4);
+  widen(u.w, o + 6);
 }
 
 template <typename T, int HD, int NL, int P>
 __global__ void __launch_bounds__(kThreads) deform_sample_kernel(
     const T* __restrict__ value, const float* __restrict__ loc, const float* __restrict__ aw,
     float* __restrict__ out, Levels lv, long long pairs, int nh, int nq, int ltot, int normalized) {
-  constexpr int kLanes = HD / 4;               // lanes per (query, head) pair
+  constexpr int kV = kVec<T, HD>;
+  using Raw = typename RawT<T, kV>::type;
+  constexpr int kLanes = HD / kV;          // lanes per (query, head) pair
   constexpr int kPairsPerWarp = 32 / kLanes;
-  constexpr int kCorners = 4 * P;              // bilinear corners per level
-  constexpr int kOwn = kCorners / kLanes;      // corners each lane computes
+  constexpr int kCorners = 4 * P;          // bilinear corners per level
+  constexpr int kOwn = kCorners / kLanes;  // corners each lane computes
   static_assert(kCorners % kLanes == 0 && kOwn <= 4, "a lane's corners must lie in one point");
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
@@ -92,12 +138,14 @@ __global__ void __launch_bounds__(kThreads) deform_sample_kernel(
   const int h = (int)(bh % nh);
   const long long b = bh / nh;
   const long long pr = (b * nq + l) * nh + h;  // the pair's index in loc, aw and out
-  const int c = sub * 4;  // this lane's channels
+  const int c = sub * kV;  // this lane's channels
   const long long pix = (long long)nh * HD;  // stride of one pixel in value
   const T* vb = value + (b * ltot * nh + h) * HD + c;
   const int p = sub * kOwn / 4;  // the point whose corners this lane computes
 
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int lvl = 0; lvl < NL; ++lvl) {
     const int hh = lv.h[lvl];
@@ -135,28 +183,32 @@ __global__ void __launch_bounds__(kThreads) deform_sample_kernel(
     // Every corner of the pair, from its owner lane; all loads before the FMAs.
     const T* vl = vb + (long long)lv.start[lvl] * pix;
     float wt[kCorners];
-    float4 val[kCorners];
+    Raw raw[kCorners];
 #pragma unroll
     for (int k = 0; k < kCorners; ++k) {
       wt[k] = __shfl_sync(0xffffffffu, own_w[k % kOwn], k / kOwn, kLanes);
       const int idx = __shfl_sync(0xffffffffu, own_i[k % kOwn], k / kOwn, kLanes);
-      val[k] = wt[k] != 0.f ? ldg4(vl + idx * pix) : make_float4(0.f, 0.f, 0.f, 0.f);
+      raw[k] = wt[k] != 0.f ? ldg_raw<T, kV>(vl + idx * pix) : Raw{};
     }
 #pragma unroll
     for (int k = 0; k < kCorners; ++k) {
-      acc.x = fmaf(wt[k], val[k].x, acc.x);
-      acc.y = fmaf(wt[k], val[k].y, acc.y);
-      acc.z = fmaf(wt[k], val[k].z, acc.z);
-      acc.w = fmaf(wt[k], val[k].w, acc.w);
+      float val[kV];
+      widen(raw[k], val);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) acc[i] = fmaf(wt[k], val[i], acc[i]);
     }
   }
-  if (live) *reinterpret_cast<float4*>(out + pr * HD + c) = acc;
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < kV; i += 4)
+      *reinterpret_cast<float4*>(out + pr * HD + c + i) = make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  }
 }
 
 template <typename T, int HD, int NL>
 int launch_levels(const void* value, const void* loc, const void* aw, void* out, const Levels& lv,
                   long long pairs, int nh, int nq, int ltot, int normalized, cudaStream_t s) {
-  constexpr int kPairsPerBlock = kThreads / 32 * (32 / (HD / 4));
+  constexpr int kPairsPerBlock = kThreads / 32 * (32 / (HD / kVec<T, HD>));
   const unsigned grid = (unsigned)((pairs + kPairsPerBlock - 1) / kPairsPerBlock);
   deform_sample_kernel<T, HD, NL, 4><<<grid, kThreads, 0, s>>>(
       (const T*)value, (const float*)loc, (const float*)aw, (float*)out, lv, pairs, nh, nq, ltot, normalized);

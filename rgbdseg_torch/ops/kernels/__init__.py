@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -117,6 +118,44 @@ def build_all() -> float:
         if job is not None:
             _finish_build(name, job)
     return time.perf_counter() - t0
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's `-Xptxas -v` output: its
+    demangled name, registers, stack frame, spill stores and loads, and shared
+    memory (what decides occupancy and local-memory traffic)."""
+    funcs: dict[str, dict] = {}
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_st=int(m.group(2)), spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    names = _demangle(list(funcs))
+    return [f"{names[k]}: {f.get('regs')} registers, {f.get('stack')} bytes stack frame, {f.get('spill_st')} / "
+            f"{f.get('spill_ld')} bytes spill stores / loads, {f.get('smem')} bytes static smem"
+            for k, f in funcs.items() if "regs" in f]
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    """c++filt's names where it is installed (the mangled ones where not)."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+    if len(out) != len(names):
+        return {n: n for n in names}
+    return {n: re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", d) for n, d in zip(names, out)}
 
 
 def load(name: str) -> ctypes.CDLL:

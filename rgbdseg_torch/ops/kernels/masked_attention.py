@@ -11,15 +11,19 @@ partial (max, sum, accumulator) rows; a second kernel combines them and writes
 each row's log-sum-exp. The backward (`rgbdseg_torch/csrc/masked_attention_bwd.cu`)
 turns the mask test into bits, then reuses the forward's split: per 64-key
 tile it recomputes the probabilities from the log-sum-exp, runs its five
-products as 3xTF32 `mma.sync`, writes dK and dV of its keys and a partial dQ,
-which a third kernel sums over the splits in order. Each call counts once: the
-forward is two launches, the backward three.
+products as 3xTF32 `mma.sync` (float32) or as bf16 `mma.sync` m16n8k16 with
+P and dS rounded to bf16 where the JAX VJP rounds them (bfloat16), writes dK
+and dV of its keys and a partial dQ, which a third kernel sums over the splits
+in order; all three come out in q's dtype. Each call counts once: the forward
+is two launches, the backward three.
 
 `masked_cross_attention` keeps the JAX signature: q (B, H, Q, hd) pre-scaled by
 hd**-0.5; k, v (B, H, K, hd); mask_logits (B, Q, K) float32 raw logits;
 all_blocked (B, Q) bool. Returns (B, H, Q, hd) in q's dtype. Gradients reach q,
 k and v; the masks get none. The plain backward is torch's autograd of the
-plain forward, which has no tie convention to match.
+plain forward, which has no tie convention to match; on bf16 tensors it rounds
+where the JAX VJP does (P before d v, d S before d q and d k, and d P, which the
+kernel keeps in float32).
 """
 
 from __future__ import annotations
@@ -45,13 +49,13 @@ def masked_cross_attention_plain(q, k, v, mask_logits, all_blocked) -> torch.Ten
 
 
 @functools.lru_cache(maxsize=None)
-def _split_plan(b: int, nh: int, nq: int, nk: int, device_index: int) -> tuple[int, int]:
+def _split_plan(b: int, nh: int, nq: int, nk: int, device_index: int, per_sm: int = 2) -> tuple[int, int]:
     """(tiles per split, splits): whole 64-key tiles per block, the fewest per
-    block that keep the grid within one wave of two blocks per SM."""
+    block that keep the grid within one wave of `per_sm` blocks per SM."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     ntiles = -(-nk // TILE_K)
     blocks_per_split = b * nh * -(-nq // MAX_ROWS)
-    tiles_per_split = -(-ntiles * blocks_per_split // (2 * sms))
+    tiles_per_split = -(-ntiles * blocks_per_split // (per_sm * sms))
     return tiles_per_split, -(-ntiles // tiles_per_split)
 
 
@@ -63,8 +67,9 @@ def masked_cross_attention_plain_bwd(q, k, v, mask_logits, all_blocked, grad_out
         return torch.autograd.grad(out, qkv, grad_out)
 
 
-def _check_launch(q, k, v, mask_logits, all_blocked):
-    """Shapes, dtypes and layouts the K3 kernels take; returns (B, H, Q, K, hd, tiles per split, splits)."""
+def _check_launch(q, k, v, mask_logits, all_blocked, per_sm: int = 2):
+    """Shapes, dtypes and layouts the K3 kernels take; returns (B, H, Q, K, hd,
+    tiles per split, splits) for a grid of `per_sm` blocks per SM."""
     b, nh, nq, hd = q.shape
     nk = k.shape[2]
     if k.shape != (b, nh, nk, hd) or v.shape != k.shape:
@@ -84,7 +89,7 @@ def _check_launch(q, k, v, mask_logits, all_blocked):
     check_cuda_tensor(v, "v", dtypes)
     check_cuda_tensor(mask_logits, "mask_logits", (torch.float32,))
     check_cuda_tensor(all_blocked, "all_blocked", (torch.bool,))
-    return (b, nh, nq, nk, hd, *_split_plan(b, nh, nq, nk, q.get_device()))
+    return (b, nh, nq, nk, hd, *_split_plan(b, nh, nq, nk, q.get_device(), per_sm))
 
 
 def _launch(q, k, v, mask_logits, all_blocked):
@@ -107,16 +112,16 @@ def _launch(q, k, v, mask_logits, all_blocked):
 
 def _launch_bwd(q, k, v, mask_logits, all_blocked, out, lse, grad_out):
     """The backward kernels; returns (d q, d k, d v) in q's dtype."""
-    b, nh, nq, nk, hd, tiles_per_split, splits = _check_launch(q, k, v, mask_logits, all_blocked)
+    # The bf16 kernel fits three blocks per SM at hd <= 32 (half the shared memory of the f32 one).
+    per_sm = 3 if q.dtype == torch.bfloat16 and q.shape[-1] <= 32 else 2
+    b, nh, nq, nk, hd, tiles_per_split, splits = _check_launch(q, k, v, mask_logits, all_blocked, per_sm)
     grad_out = grad_out.to(q.dtype).contiguous()
     check_cuda_tensor(out, "out", (q.dtype,))
     check_cuda_tensor(lse, "lse", (torch.float32,))
     if grad_out.shape != out.shape or lse.shape != (b, nh, nq):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} / lse {tuple(lse.shape)} must be "
                          f"{tuple(out.shape)} / ({b}, {nh}, {nq})")
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))  # the kernels write q's dtype
     # Scratch: the splits' dQ partials, then the mask as bits (2 words per 64-key tile and query).
     dq_part = torch.empty(b * nh * nq * splits * hd + b * nq * 2 * -(-nk // TILE_K), dtype=torch.float32,
                           device=q.device)
@@ -127,7 +132,7 @@ def _launch_bwd(q, k, v, mask_logits, all_blocked, out, lse, grad_out):
         dq_part.data_ptr(), b, nh, nq, nk, hd, tiles_per_split, splits, int(q.dtype == torch.bfloat16),
         flops=10 * b * nh * nq * nk * hd,  # q k^T again, d v, d p, d q and d k over every key
     )
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 class MaskedCrossAttention(torch.autograd.Function):

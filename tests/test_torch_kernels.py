@@ -25,6 +25,7 @@ from rgbdseg_torch.ops.kernels.deformable import (
     deform_sample_levels_plain,
     deform_sample_levels_plain_bwd,
 )
+from rgbdseg_torch.ops.kernels import masked_attention as _mca
 from rgbdseg_torch.ops.kernels.masked_attention import (
     masked_cross_attention,
     masked_cross_attention_plain,
@@ -272,6 +273,28 @@ def test_cuda_deform_levels_match_plain(geometry):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["model", "random", "integer"])
+def test_cuda_deform_bf16_equals_f32_of_widened_values(geometry):
+    """K1 on bf16 V gives the bits of K1 on V.float(): the kernel widens bf16
+    exactly and runs the f32 route's arithmetic in the same order."""
+    _need_cuda()
+    value, loc, weights = _levels_inputs(LEVELS_480x640, nh=8, geometry="random" if geometry == "random" else "model")
+    if geometry == "integer":
+        rng = np.random.RandomState(7)
+        for lvl, (h, w) in enumerate(LEVELS_480x640):
+            loc[:, :, :, lvl, :, 0] = (rng.randint(-1, w + 1, loc.shape[:3] + (4,)) + np.float32(0.5)) / np.float32(w)
+            loc[:, :, :, lvl, :, 1] = (rng.randint(-1, h + 1, loc.shape[:3] + (4,)) + np.float32(0.5)) / np.float32(h)
+    value, loc, weights = (torch.from_numpy(a).cuda() for a in (value, loc, weights))
+    vb = value.bfloat16()
+    assert torch.equal(deform_sample_levels(vb, LEVELS_480x640, loc, weights),
+                       deform_sample_levels(vb.float(), LEVELS_480x640, loc, weights))
+    gx, gy, aw, v = (torch.from_numpy(a).cuda() for a in _tent_integer_coords())
+    assert torch.equal(deform_sample_level(gx, gy, aw, v.bfloat16(), 9, 11),
+                       deform_sample_level(gx, gy, aw, v.bfloat16().float(), 9, 11))
+    torch.cuda.synchronize()
+
+
 def _mca_edge_inputs(nq, nk, hd, b=2, h=8, seed=0):
     """Random masks plus: row 0 all blocked (exempted), row 1 (row 0 when Q=1)
     unblocked only at the last key, which lies in the last split."""
@@ -389,8 +412,11 @@ def test_cuda_mca_backward_matches_plain(nk):
     products in another order, probabilities from the forward's log-sum-exp;
     with K=1, d q and d k are exactly 0 in the plain version and rounding-sized
     in the kernel). Two launches give the same bits (no atomics). In bf16 the
-    kernel computes in f32 from the bf16 inputs, O and d out: against the f32
-    plain backward of the same bf16 values, 2e-2 x the largest |ref|."""
+    kernel runs bf16 products and rounds P and d S to bf16 where the JAX VJP
+    does: against the plain backward in bf16 (which rounds there too, and d P),
+    2e-2 x the largest |ref|, and against the float32 plain backward of the
+    same bf16 values (which rounds nothing), 1e-2 x the largest |ref|; two
+    launches give the same bits, and the kernels' own outputs are bf16."""
     _need_cuda()
     for nq in (1, 100, 129):
         for hd in (16, 32, 64):
@@ -405,8 +431,13 @@ def test_cuda_mca_backward_matches_plain(nk):
             qb, kb, vb, gb = (t.bfloat16() for t in (q, k, v, g))
             got = _grads(lambda a, b, c: masked_cross_attention(a, b, c, m, ab), (qb, kb, vb), gb)
             assert all(x.dtype == torch.bfloat16 for x in got)
-            ref = masked_cross_attention_plain_bwd(qb.float(), kb.float(), vb.float(), m, ab, gb.float())
-            _assert_grad_close(got, ref, rel=2e-2, joint=True)
+            _assert_grad_close(got, masked_cross_attention_plain_bwd(qb, kb, vb, m, ab, gb), rel=2e-2, joint=True)
+            _assert_grad_close(got, masked_cross_attention_plain_bwd(*(t.float() for t in (qb, kb, vb)), m, ab,
+                                                                     gb.float()), rel=1e-2, joint=True)
+            again = _grads(lambda a, b, c: masked_cross_attention(a, b, c, m, ab), (qb, kb, vb), gb)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            out, lse = _mca._launch(qb, kb, vb, m, ab)
+            assert all(x.dtype == torch.bfloat16 for x in _mca._launch_bwd(qb, kb, vb, m, ab, out, lse, gb))
     torch.cuda.synchronize()
 
 
