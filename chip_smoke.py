@@ -30,7 +30,8 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      in-model geometry (the headline time), at the in-model layout with offsets
      of +-12 pixels ("spread") and at random coordinates (both correctness
      cases, timed too), K3 at K=300, 1200 and 4800 with an all-blocked row, and
-     a second K3 launch that must give the same bits; the device time of the
+     a second launch of each that must give the same bits (K1's d value, d
+     locations and d weights too); the device time of the
      backward launch, the
      plain backward's and the library yardstick's (the aten grid_sample backward
      for each level; SDPA's forward and backward less its forward), each from a
@@ -39,9 +40,11 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      gives them, at B=2, the backward ones through torch.autograd.grad of their
      wrappers, each against its plain version on the same bfloat16 values,
      timed beside the plain version and the library call in bfloat16; K1 on
-     bf16 V equal bit for bit to K1 on V.float(); K3's backward against the
-     plain backward in bf16, two launches with the same bits, and the effect
-     of its delta (rowsum(dO * O) against the JAX VJP's sum_k dP * P);
+     bf16 V equal bit for bit to K1 on V.float(); K1's backward twice with the
+     same bits and d value in bfloat16 from the kernels; K3's forward also
+     against the float32 plain version of its bf16 values; K3's backward
+     against the plain backward in bf16, two launches with the same bits, and
+     the effect of its delta (rowsum(dO * O) against the JAX VJP's sum_k dP * P);
   6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
      480x640 frames (stacks built as in phase 4) with up to 16 box instances
@@ -102,8 +105,10 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      count, the CUDA generator's state: all equal to the saved ones bit for
      bit) and trains epoch 2, whose mean loss must lie within RESUME_LOSS_RTOL
      of the interrupted run's own epoch 2, trained on from the state it saved
-     (so the two differ only by epoch 2's atomics, not by two runs' epoch 1),
-     and whose first micro-step loss must equal that run's bit for bit;
+     (so the two differ only by epoch 2's nondeterministic sums, not by two
+     runs' epoch 1), and whose first micro-step loss must equal that run's bit
+     for bit; whether two runs' epoch-1 losses, and the two epoch 2s, are
+     equal bit for bit is printed;
   16. predict entry: `predict_torch.main` on one raw 480x640 PNG pair of that
      set, from `--checkpoint checkpoint-8` and from `--hf_checkpoint` of the
      run's export: the logits equal bit for bit, 6 K1 and 9 K3 launches each,
@@ -128,7 +133,7 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      the weights after DDP's construction, the loss, the BatchNorm statistics
      and the generator equal bit for bit, DDP's reduce the identity on every
      gradient, and the gradients, parameters and moments within a second
-     plain step's spread (K1's backward atomics); then one process at batch 2
+     plain step's spread (grid_sample's and cuDNN's backward); then one process at batch 2
      as the reference and two child processes sharing the card over Gloo
      (`--parallel-child`, internal): (b) dp=2 at batch 1 per rank and (c)
      dp=1 x mp=2 at 4 heads, each against the reference on its attention
@@ -195,10 +200,10 @@ K3_TOL, K3_TOL_BF16 = 1e-5, 2e-2
 # 1e-6 per op over ~40 stacked layers.
 SLICE_RTOL = 1e-3
 # Backward kernels against their plain versions, relative to the largest |ref|:
-# K1 per gradient (its d value is summed with float atomics in an order that
-# changes from run to run, a few ulps of the largest contribution); K3 over
-# d q, d k and d v together (with one key, d q and d k are exactly 0 in the
-# plain version).
+# K1 per gradient (its d value is summed in another fixed order than the plain
+# sum's, a few ulps of the largest contribution); K3 over d q, d k and d v
+# together (with one key, d q and d k are exactly 0 in the plain version). Both
+# give the same bits in two launches.
 K1_BWD_RTOL = K3_BWD_RTOL = 1e-5
 # The backward kernels with bfloat16 operands (tests/test_torch_kernels.py): K1's
 # d value comes back in bfloat16, a rounding of each side, so 1e-2 x max |ref|
@@ -216,7 +221,7 @@ TRAIN_B, TRAIN_T = 2, 16  # train batch and real instances per frame
 TRAIN_T_MAX = 32  # the train-full phase's padded slots (max_instances), compacted to the bucket of 16
 # The compacted and packed micro-step against the padded float one (phase 12):
 # the same forward, the criterion over 16 slots instead of 32 with the same
-# points; float32 sums in another order, cuDNN's backward and K1's atomics.
+# points; float32 sums in another order, cuDNN's backward and grid_sample's atomics.
 TRAIN_FULL_RTOL = 1e-5
 # The bf16 step against the float32 one from the same weights and batch
 # (phase 13), relative (loss, gradient norm): 5 x the bf16-vs-f32 gap of the
@@ -226,7 +231,7 @@ BF16_GAP_BOUND = (0.135, 0.095)
 # Step 0 on GPU against CPU, relative (loss, gradient norm, worst kernel-fed
 # gradient leaf against its own max): f32 with TF32 off on both, so with the
 # same decoder attention masks they differ only by summation orders (cuDNN,
-# cuBLAS, K1's atomics against the CPU). Measured on the H100 at seed 0: 2.4e-7,
+# cuBLAS, the kernels against the CPU). Measured on the H100 at seed 0: 2.4e-7,
 # 1.3e-5, 2.4e-4 (the last decoder layer's q projection; the rest 5e-6..1.5e-4).
 # On its own masks the CPU may also flip the blocked test of a mask pixel whose
 # logit sits at 0 (1 entry at seed 0, the same readings), which moves later
@@ -244,7 +249,8 @@ NYU_STEPS = 398  # an NYUv2 epoch: 795 training frames at batch 2
 # The resumed run's epoch-2 mean loss against the uninterrupted run's, relative
 # (phase 15), set before the first run on the card. The two runs start from the
 # same weights, batches and generator states, so they differ only where the
-# card sums in a varying order (K1's backward adds d value with atomics): step
+# card sums in a varying order (K1's backward no longer does; grid_sample's
+# backward in the criterion and cuDNN still may): step
 # 0's loss differs from the CPU's by 2.4e-7 (phase 7), a run from itself by
 # less. Adam divides each moment by sqrt(nu), so the first steps can amplify a
 # relative difference of small gradients; allowing ~4x per optimizer step over
@@ -566,6 +572,11 @@ def check_backward_kernels(rng, dev) -> dict:
         got = autograd_grads(f"deform_sample_levels_bwd {geometry}", "deformable",
                              lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w), (value, loc, weights), g)
         err = _check_grads(f"deform_sample_levels_bwd {geometry}", got, plain(), K1_BWD_RTOL)
+        again = autograd_grads(f"deform_sample_levels_bwd {geometry}", "deformable",
+                               lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w), (value, loc, weights), g)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"deform_sample_levels_bwd {geometry}: two launches give different bits")
+        log(f"kernel deform_sample_levels_bwd {geometry}: two launches give the same bits (d value, d loc, d weights)")
 
         def kernel():  # the launch the autograd backward makes, alone, for the CUDA graph
             return KD._launch_bwd(value, loc, weights, LEVELS, starts, True, g)
@@ -757,9 +768,16 @@ def check_bf16_kernels(rng, dev) -> list[dict]:
 
     got = autograd_grads("deformable", lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w),
                          (vb, loc, weights), g)
+    again = autograd_grads("deformable", lambda v, lc, w: KD.deform_sample_levels(v, LEVELS, lc, w),
+                           (vb, loc, weights), g)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("bf16 deform_sample_levels_bwd: two launches give different bits")
     ref = KD.deform_sample_levels_plain_bwd(vb, LEVELS, loc, weights, g)
-    if got[0].dtype != torch.bfloat16:
-        raise AssertionError(f"bf16 K1 backward: d value in {got[0].dtype}")
+    kernel_dtype = KD._launch_bwd(vb, loc, weights, LEVELS, starts, True, g)[0].dtype
+    if got[0].dtype != torch.bfloat16 or kernel_dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 K1 backward: d value in {got[0].dtype} ({kernel_dtype} from the kernels)")
+    log("kernel bf16 deform_sample_levels_bwd: two launches give the same bits (d value, d loc, d weights); "
+        "d value bfloat16 from the kernels")
     err = max(_check_grads("bf16 deform_sample_levels_bwd d value", got[:1], ref[:1], K1_BWD_RTOL_BF16_DV),
               _check_grads("bf16 deform_sample_levels_bwd d loc, d weights", got[1:], ref[1:], K1_BWD_RTOL))
     gos = [torch.randn(TRAIN_B * NH, HD, L, P, device=dev, dtype=torch.bfloat16) for _ in LEVELS]
@@ -777,8 +795,12 @@ def check_bf16_kernels(rng, dev) -> list[dict]:
         gb = torch.from_numpy(rng.randn(*q.shape).astype(np.float32)).to(dev).bfloat16()
         allowed = ~((m < 0) & ~ab[:, :, None])[:, None]
         pairs = q.shape[1] * HD * allowed.sum().item()
-        err = _check(f"bf16 masked_cross_attention K={nk}", KM.masked_cross_attention(qb, kb, vb_, m, ab).float(),
+        out_b = KM.masked_cross_attention(qb, kb, vb_, m, ab).float()
+        err = _check(f"bf16 masked_cross_attention K={nk}", out_b,
                      KM.masked_cross_attention_plain(qb, kb, vb_, m, ab).float(), K3_TOL_BF16)
+        # The f32 plain version of the same bf16 values rounds neither the scores nor p.
+        _check(f"bf16 masked_cross_attention K={nk} vs f32 plain", out_b,
+               KM.masked_cross_attention_plain(qb.float(), kb.float(), vb_.float(), m, ab), K3_TOL_BF16)
         log(f"kernel f32 masked_cross_attention K={nk} B={TRAIN_B} (the bf16 row's shape, for comparison): ms "
             f"{time_ms(lambda: KM.masked_cross_attention(q, k, v, m, ab)):.4f}")
         report("masked_cross_attention", f"K={nk}", err, lambda: KM.masked_cross_attention(qb, kb, vb_, m, ab),
@@ -904,8 +926,8 @@ def profile_call(label: str, fn, top: int = 15) -> tuple[float, float, float]:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile: {label} wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} device events")
-    names = (r"deform_sample_bwd_kernel|deform_sample_kernel|mca_split_kernel|mca_combine_kernel|mca_bwd_dq_kernel"
-             r"|mca_bwd_mask_kernel|mca_bwd_bf16_kernel|mca_bwd_kernel")
+    names = (r"deform_sample_bwd_kernel|deform_sample_kernel|mark_kernel|gather_dv_kernel|mca_split_kernel"
+             r"|mca_combine_kernel|mca_bwd_dq_kernel|mca_bwd_mask_kernel|mca_bwd_bf16_kernel|mca_bwd_kernel")
     port = {}  # by kernel name, over its instantiations: [device us, count]
     for e in kernels:
         m = re.search(names, e.key)
@@ -1862,6 +1884,11 @@ def run_finetune(seed: int, out_dir: Path):
             first.train()
         except KeyboardInterrupt:
             pass
+        # A second run of epoch 1 from the same weights and batches: printed, not
+        # asserted (the criterion's grid_sample backward and cuDNN may still vary).
+        again1, ran1 = [float(x) for _, x in micro], losses[:steps // FT_EPOCHS]
+        log(f"finetune: two runs' epoch-1 micro-step losses equal bit for bit: {again1 == ran1} (largest relative "
+            f"difference {max(abs(a - b) / abs(b) for a, b in zip(again1, ran1)):.3e}; {again1} vs {ran1})")
         last = find_last_checkpoint(targs.output_dir)
         if last != saved["path"] or saved["step"] != steps // FT_EPOCHS:
             raise AssertionError(f"interrupted run: last checkpoint {last}, saved {saved['path']} at {saved['step']}")
@@ -1898,8 +1925,9 @@ def run_finetune(seed: int, out_dir: Path):
         log(f"finetune resume: checkpoint-{saved['step']} reloaded by a fresh Trainer equal bit for bit "
             f"({', '.join(same)}); epoch-2 mean loss resumed {again:.7f} vs the interrupted run's own continuation "
             f"in memory {straight:.7f}, relative {rel:.3e} (tol {RESUME_LOSS_RTOL:g}); micro-step losses resumed "
-            f"{epoch2['resumed']}, uninterrupted {epoch2['uninterrupted']}; the finetune run's epoch 2 (another "
-            f"run, its own atomics from step 1) {float(np.mean(losses[steps // FT_EPOCHS:])):.7f}")
+            f"{epoch2['resumed']}, uninterrupted {epoch2['uninterrupted']} (equal bit for bit: "
+            f"{epoch2['resumed'] == epoch2['uninterrupted']}); the finetune run's epoch 2 (another run, which also "
+            f"evaluated after epoch 1) {float(np.mean(losses[steps // FT_EPOCHS:])):.7f}")
         if not rel <= RESUME_LOSS_RTOL:
             raise AssertionError(f"resumed epoch-2 loss differs by {rel}")
         # the first step of epoch 2 runs the same forward on the same state and batch
@@ -2317,10 +2345,10 @@ def run_parallel_nccl(seed: int, step0, batch, pp, cfg, device: str = "cuda", ba
     weights and generator seed. Bit for bit: the parameters after DDP's
     construction, the loss, the BatchNorm statistics, the generator's state,
     and DDP's reduced gradients against the bucket's local ones (DDP divides by
-    1). K1's backward adds d value with float atomics in an order that changes
-    from run to run, so the gradients, and the parameters and moments after the
-    update, are compared with a second plain step's spread: equal bit for bit
-    where two plain steps are. Returns the DDP step's launches."""
+    1). The criterion's grid_sample backward and cuDNN may sum in an order that
+    changes from run to run, so the gradients, and the parameters and moments
+    after the update, are compared with a second plain step's spread: equal bit
+    for bit where two plain steps are. Returns the DDP step's launches."""
     import copy
 
     import torch

@@ -25,7 +25,9 @@ has what it needs (else it says so and is skipped):
   against the plain backward in bf16): K1 at the in-model and the "spread"
   geometries (`chip_smoke.k1_inputs`), K3 at K = 300, 1200 and 4800 on the
   log-sum-exp of this tree's forward; whether old and new give the same bits
-  (K1's d value apart: float atomics).
+  (K1's d value apart: the parent adds it with float atomics), and whether two
+  launches of this tree's K1 backward do; each launch's per-kernel split, the
+  parent's zeroing and bf16 cast of d value counted on its side.
 - requests (not with --kernels-only): both commits' full-width 0.4.0 models,
   with the same seeded weights, serve the same 480x640 frame in turns old,
   new, new, old (`--requests` rounds): median request ms of each, and their
@@ -37,6 +39,13 @@ has what it needs (else it says so and is skipped):
   (`--requests` rounds): median step ms of each.
 
 Prints one line per shape and a JSON line; needs one CUDA card.
+
+    python3 kernel_ab.py --parent DIR --k1-split [--seed N]
+
+runs, instead, the split of the parent's K1 backward (`k1_split`): its launch
+as it is, without its d value atomics and with its V loads replaced by a
+constant (variants of its source built beside its build), and the d value
+zeroing and bf16 cast alone, at the in-model geometry, B=2, f32 and bf16 V.
 
     python3 kernel_ab.py --parent DIR --parallel [--seed N]
 
@@ -82,9 +91,11 @@ def load_parent(parent: Path):
 def backward_ab(old_deform, old_mca, rng) -> list[dict]:
     """The backward section: the parent's and this tree's backward launches at the
     train shapes, float32 and bfloat16 operands, each held against the plain
-    backward first (bf16: the plain backward in bf16). Where this tree left a
-    route as it was, its outputs must have the parent's bits (K1's d value
-    apart, which float atomics add in a varying order)."""
+    backward first (bf16: the plain backward in bf16), and split by kernel
+    (profiler). The parent's K1 side pays what its step paid for d value (its
+    zeroing, and in bf16 the cast); this tree's K1 backward must give the same
+    bits in two launches. Where this tree left a route as it was, its outputs
+    have the parent's bits (the parent's K1 d value apart: float atomics)."""
     import torch
 
     from rgbdseg_torch.ops.kernels import deformable as KD
@@ -99,8 +110,9 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
         for vt, dv_rtol in ((value, cs.K1_BWD_RTOL), (value.bfloat16(), cs.K1_BWD_RTOL_BF16_DV)):
             dtype = str(vt.dtype).replace("torch.", "")
 
-            def old():
-                return old_deform._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g)
+            def old():  # what the parent's train step pays for d value: the zeroing, the kernel, the cast
+                d_value, d_loc, d_w = old_deform._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g)
+                return d_value.to(vt.dtype), d_loc, d_w
 
             def new():
                 return KD._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g)
@@ -113,8 +125,17 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
                 cs._check_grads(f"ab K1-bwd {geometry} {dtype} {label} d loc, d weights", outs[label][1:], ref[1:],
                                 cs.K1_BWD_RTOL)
             same = all(torch.equal(a, b) for a, b in zip(outs["old"][1:], outs["new"][1:]))
-            cs.log(f"ab K1-bwd {geometry} {dtype}: d loc and d weights old == new bit for bit: {same}")
-            rows.append(dict(kernel="K1-bwd", dtype=dtype, same_bits=same, **ab(
+            again = all(torch.equal(a, b) for a, b in zip(outs["new"], new()))
+            if not again:
+                raise AssertionError(f"K1-bwd {geometry} {dtype}: two launches give different bits")
+            cs.log(f"ab K1-bwd {geometry} {dtype}: d loc and d weights old == new bit for bit: {same}; new: two "
+                   f"launches give the same bits (d value, d loc, d weights); d value {outs['new'][0].dtype} "
+                   f"from the kernels")
+            split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
+            for label, ms in split.items():
+                cs.log(f"ab K1-bwd {geometry} {dtype} {label} per kernel: "
+                       + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+            rows.append(dict(kernel="K1-bwd", dtype=dtype, same_bits=same, kernels_ms=split, **ab(
                 f"K1-bwd one encoder layer, {geometry} geometry, {dtype} V, B={cs.TRAIN_B}", old, new)))
     for nk in cs.KEYS:
         q, k, v, m, ab_ = cs.mca_inputs(rng, nk, dev, cs.TRAIN_B)
@@ -147,6 +168,73 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
                              **ab(f"K3-bwd K={nk} {dtype} B={cs.TRAIN_B}", old, new)))
     torch.cuda.synchronize()
     return rows
+
+
+# Throwaway variants of the parent's K1 backward for the split (--k1-split):
+# text substitutions on its source, built by hand beside the parent's build.
+K1_SPLIT_VARIANTS = {
+    "no d value atomics": ("atomicAdd(reinterpret_cast<float4*>(dvl + off)",
+                           "if (0) atomicAdd(reinterpret_cast<float4*>(dvl + off)"),
+    "V loads a constant": ("v[k] = ok ? ldg4(vl + off) : make_float4(0.f, 0.f, 0.f, 0.f);",
+                           "v[k] = make_float4(1.f, 1.f, 1.f, 1.f);"),
+}
+
+
+def k1_split(parent: Path, parent_kernels, old_deform, rng) -> dict:
+    """Where the parent's K1 backward spends its time, at the in-model geometry,
+    B=2, float32 and bfloat16 V: its `_launch_bwd` (the d value zeroing and the
+    kernel) as it is and with each of K1_SPLIT_VARIANTS built in place of its
+    kernel, the zeroing alone and the bf16 cast of d value alone (device ms, a
+    replayed CUDA graph), and each build's ptxas line (registers, spills)."""
+    import ctypes
+
+    import torch
+
+    dev = torch.device("cuda")
+    value, loc, weights = cs.k1_inputs(rng, dev, "model", cs.TRAIN_B)
+    g = torch.from_numpy(rng.randn(cs.TRAIN_B, cs.L, cs.NH * cs.HD).astype(np.float32)).to(dev)
+    starts = [sum(h * w for h, w in cs.LEVELS[:i]) for i in range(len(cs.LEVELS))]
+    src = (parent / "rgbdseg_torch" / "csrc" / "deformable_bwd.cu").read_text()
+    out_dir = parent / "build" / "k1_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fn_name, argtypes = parent_kernels._SIGNATURES["deformable_bwd"]
+    libs = {"as it is": parent_kernels.load("deformable_bwd")}
+    for i, (label, (old, new)) in enumerate(K1_SPLIT_VARIANTS.items()):
+        if old not in src:
+            raise AssertionError(f"k1 split: '{old}' not in the parent's deformable_bwd.cu")
+        cu = out_dir / f"variant{i}.cu"
+        cu.write_text(src.replace(old, new))
+        so = out_dir / f"libvariant{i}.so"
+        run = subprocess.run([parent_kernels._nvcc(), *parent_kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"k1 split: nvcc failed for '{label}':\n{run.stdout}{run.stderr}")
+        for line in parent_kernels.ptxas_report(run.stdout + run.stderr):
+            cs.log(f"k1 split ptxas '{label}': {line}")
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, fn_name).argtypes = argtypes
+        getattr(lib, fn_name).restype = ctypes.c_int
+        libs[label] = lib
+    report = {}
+    try:
+        for vt in (value, value.bfloat16()):
+            dtype = str(vt.dtype).replace("torch.", "")
+            row = {}
+            for label, lib in list(libs.items()) + list(libs.items())[:1]:  # "as it is" first and last
+                parent_kernels._LIBS["deformable_bwd"] = lib
+                ms = cs.time_ms(lambda: old_deform._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g))
+                row.setdefault(label, []).append(ms)
+            d32 = torch.zeros(value.shape, dtype=torch.float32, device=dev)
+            row["zeroing alone"] = [cs.time_ms(lambda: torch.zeros(value.shape, dtype=torch.float32, device=dev))]
+            row["bf16 cast alone"] = [cs.time_ms(lambda: d32.to(torch.bfloat16))]
+            for label, ms in row.items():
+                cs.log(f"k1 split {dtype} V, B={cs.TRAIN_B}, in-model: {label}: "
+                       + " / ".join(f"{t:.4f}" for t in ms) + " ms")
+            report[dtype] = row
+    finally:
+        parent_kernels._LIBS["deformable_bwd"] = libs["as it is"]
+    torch.cuda.synchronize()
+    return report
 
 
 def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
@@ -291,6 +379,8 @@ def main(argv=None) -> int:
                     help="timed rounds of old/new/new/old requests, and of train steps")
     ap.add_argument("--kernels-only", action="store_true",
                     help="the trace and the kernel sections only (no requests, no train steps)")
+    ap.add_argument("--k1-split", action="store_true",
+                    help="instead: where the parent's K1 backward spends its time (variants of its kernel)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead: chip_smoke.py phase 18 of the parent and of this tree in turns")
     ap.add_argument("--phase18-of", type=Path, default=None, help=argparse.SUPPRESS)
@@ -314,12 +404,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.log(f"device: {smi}; parent {args.parent}; TF32 off")
-    build_all()
     old_deform, old_mca, old_predictor = load_parent(args.parent.resolve())
     parent_kernels = importlib.import_module("parent_rgbdseg_torch.ops.kernels")
     parent_kernels.build_all()
-    traced = trace(parent_kernels)
     rng = np.random.RandomState(args.seed)
+    if args.k1_split:
+        print(json.dumps({"device": smi, "k1_split": k1_split(args.parent.resolve(), parent_kernels, old_deform, rng)}))
+        return 0
+    build_all()
+    traced = trace(parent_kernels)
     rows = []
     if hasattr(old_deform, "deform_sample_levels"):
         rows += forward_ab(old_deform, old_mca, rng)
@@ -433,9 +526,10 @@ def res_usage(lib: Path) -> dict:
 
 
 def sass_counts(lib: Path) -> dict:
-    """{kernel: {"LDL": n, "STL": n, "HMMA.<shape>.<types>": n, ...}} from
-    `cuobjdump -sass` of a built library: local-memory instructions and the
-    tensor-core instructions by kind (TF32 or BF16 operands)."""
+    """{kernel: {"LDL": n, "STL": n, "HMMA.<shape>.<types>": n, "RED.<kind>": n, ...}}
+    from `cuobjdump -sass` of a built library: local-memory instructions, the
+    tensor-core instructions by kind (TF32 or BF16 operands) and the atomics
+    by kind (RED, REDG, ATOM, ATOMG in device memory, ATOMS in shared memory)."""
     from rgbdseg_torch.ops.kernels import _demangle
 
     counts, fn = {}, None
@@ -444,7 +538,7 @@ def sass_counts(lib: Path) -> dict:
             fn = ln.split("Function :")[-1].strip()
             counts[fn] = {"LDL": 0, "STL": 0}
         elif fn is not None:
-            m = re.search(r"\b(LDL|STL|HMMA\.[\w.]+)", ln)
+            m = re.search(r"\b(LDL|STL|HMMA\.[\w.]+|(?:REDG?|ATOM[GS]?)\.[\w.]+)", ln)
             if m:
                 counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     names = _demangle(list(counts))

@@ -5,8 +5,8 @@
 //                       * sum_{y, x} ty(y) tx(x) V_lvl[b, y, x, h, :]
 // with the tents tx(x) = max(0, 1 - |gx - x|), ty(y) = max(0, 1 - |gy - y|) over
 // the level's cells, gx = loc_x * w - 0.5 and gy = loc_y * h - 0.5 (or loc in
-// pixels, the per-level entry). Given grad_out (B, L, nh * hd) this kernel writes
-//   d_value (B, L_total, nh, hd) += aw * ty(y) tx(x) * grad_out   (scatter, atomics)
+// pixels, the per-level entry). Given grad_out (B, L, nh * hd) this file writes
+//   d_value (B, L_total, nh, hd)  = sum over points of aw * ty(y) tx(x) * grad_out
 //   d_aw    (B, L, nh, nl, P)     = <bilinear sample, grad_out>
 //   d_loc   (B, L, nh, nl, P, 2)  = aw * (sum_{y,x} ty(y) tx'(x) <V[y, x], grad_out> * w,
 //                                        sum_{y,x} ty'(y) tx(x) <V[y, x], grad_out> * h)
@@ -14,7 +14,7 @@
 // Replaces the backward of rgbdseg_tpu/ops/kernels/deformable.py::tent_sample_level
 // (and ::tent_sample_level_band), which is the VJP of the jnp tent twin
 // tent_sample_level_xla; the TPU package has no Pallas kernel for it. So the
-// kernel differentiates the tent itself, cell by cell, in float32 as that VJP
+// kernels differentiate the tent itself, cell by cell, in float32 as that VJP
 // does: with u = gx - x and t = 1 - |u|, the value is max(0, t) and the slope
 // tx'(x) is -sign(u) where t > 0 (-1 at u = 0, since jax.grad(abs)(0) = 1), half
 // of it where t == 0 exactly (JAX's max splits a tie), and 0 where t < 0. Away
@@ -23,37 +23,60 @@
 // gives the same half slopes within an ulp of an integer. The cells
 // floor(gx) - 1 .. floor(gx) + 2 cover every t >= 0; at most three of them per
 // axis have t >= 0, so a point has at most 3 x 3 cells of non-zero value or
-// slope. Columns or rows outside the map add nothing, as in the tent. The seeded
-// geometry puts most level-0 samples on exact integers, so this rule decides
-// whether the sampling offsets' gradient matches the JAX package.
+// slope. A non-zero value only at floor(gx) and floor(gx) + 1: |u| >= 1 exactly
+// at the other two, and f32 rounding keeps it there. Columns or rows outside the
+// map add nothing, as in the tent. The seeded geometry puts most level-0 samples
+// on exact integers, so this rule decides whether the sampling offsets' gradient
+// matches the JAX package.
 //
 // Bound on the H100: memory, like the forward. One encoder layer at 480x640, B=2
 // (nh = 8, hd = 32, P = 4), reads V, loc, aw and grad_out (~40 MB) and writes
-// d_value, d_loc and d_aw (~27 MB): ~20 us at 3.35 TB/s. What held the first
-// version at 15x that bound was not the d value atomics but the gather's
-// latency: each lane walked the 4 x 4 cells of one point after another, and
-// each cell's V load waited for the previous cell's tent tests, some 48
-// dependent L1/L2 round trips per (query, head) and layer.
+// d_value, d_loc and d_aw (~27 MB): ~20 us at 3.35 TB/s.
 //
-// Design: the forward's thread layout, hd / 4 lanes per (query, head) pair, each
-// lane a float4 of channels, a block 32 neighbouring queries of one head. Per
-// level, (a) the pair's lanes split the 4 points x 4 x 4 candidate cells (two
-// lanes per point at hd = 32) and compute their tent values and slopes; (b) the
-// cells of non-zero value or slope go to a list in shared memory, in a fixed
-// order (ballots within the pair give each its slot); (c) all lanes walk the
-// list, issuing the V loads of 8 cells before using any, and add the dot with
-// grad_out into the partial d weight and d location of the cell's point;
-// (d) shuffles reduce those over the pair's lanes, and lane p writes point p's.
-// d value is added to a zeroed float32 buffer with one float4 atomicAdd (sm_90)
-// per lane and cell of non-zero value. The order of those additions, and so the
-// last bits of d_value, vary from run to run. Merging d value in a
-// shared-memory window per level first was slower: the window's int32 atomics
-// (float ones in shared memory are compare-and-swap loops) and its flush cost
-// more than the device-memory atomics they save.
+// Design: three kernels and a memset in one call, no float atomics, and d
+// value written once, in V's dtype, with the same bits on every run.
+//  (a) The pair kernel: d loc and d weights. The forward's thread layout, hd / 4
+//      lanes per (query, head) pair, each lane a float4 of channels, a block 32
+//      neighbouring queries of one head. Per level, the pair's lanes split the 4
+//      points x 4 x 4 candidate cells (two lanes per point at hd = 32) and
+//      compute their tent values and slopes; the cells of non-zero value or
+//      slope go to a list in shared memory in a fixed order (ballots within the
+//      pair give each its slot); all lanes walk the list, issuing the V loads of
+//      8 cells before using any, and add the dot with grad_out into the partial
+//      d weight and d location of the cell's point; shuffles reduce those over
+//      the pair's lanes, and lane p writes point p's.
+//  (b) The bucketing: d value is summed in destination order. Each level's map
+//      is cut into tiles of th x tw cells (the wrapper's plan, sized per level
+//      so that the tiles' lists are of similar length), and each tile gets a
+//      bitmap over its (b, head, level)'s points: bit i is set where point i
+//      (= query * P + p) has a value corner (one of its <= 2 x 2 cells of
+//      non-zero tent value on the map) in the tile. A warp writes the words of
+//      32 consecutive points: a point's tiles differ in row or column parity,
+//      so per parity slot __match_any_sync gives the lanes that list one tile,
+//      which is that tile's word, stored by the lowest of them. No atomics;
+//      the memset before clears the rest.
+//  (c) The gather kernel, one block per tile. The block lists the tile's
+//      points in shared memory in ascending order (a thread counts 4 bitmap
+//      words, a block scan places them), and warp w takes the w-th eighth of
+//      the list, 32 points at a time: lane j computes point j's corner weights
+//      aw * ty * tx with (a)'s arithmetic, their places in the tile and its
+//      grad_out row; then the warp adds the points one by one into its own
+//      copy of the tile, 8 lanes per corner (4 corners are 4 cells) and hd / 8
+//      channels per lane, 8 grad_out rows (128 bytes each at hd = 32; B=2's
+//      12.9 MB stay in the 50 MB L2) in flight. The copies are summed in warp
+//      order and every cell of the tile is written once: float32, or bfloat16
+//      rounded once from the float32 sum, as the plain backward rounds. The
+//      order of every sum is fixed by the bitmaps, so d value has the same
+//      bits on every run.
+// Shared-memory windows per level with int32 fixed-point atomics in the pair
+// kernel were tried before and measured slower than the float atomics they
+// replaced; this design removes the atomics altogether (the scatter is
+// inverted into a gather).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -61,20 +84,64 @@ constexpr int kMaxLevels = 3;
 constexpr int kThreads = 256;
 constexpr int kMaxEntries = 36;  // cells of non-zero tent value or slope: at most 3 x 3 per point, 4 points
 constexpr int kBatch = 8;        // V loads in flight per lane
+constexpr int kPoints = 4;       // P
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTiles = 1536;     // tiles per level (bounds the bitmaps)
+constexpr int kMaxTileCells = 32;   // cells per tile: the gather's 8 copies fill 32 KB at hd 32
+constexpr int kGather = 8;          // grad_out rows in flight per gather warp
 
 struct Levels {
   int h[kMaxLevels];
   int w[kMaxLevels];
   int start[kMaxLevels];
+  int th[kMaxLevels];               // tile rows and columns
+  int tw[kMaxLevels];
+  int tile0[kMaxLevels + 1];        // the level's first tile over all levels
 };
 
-__device__ __forceinline__ float4 ldg4(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+// One level's fields. The kernels whose level is known only at run time read
+// the table through level(), which selects among the parameter's entries: an
+// array index into a kernel parameter would make every thread copy the table
+// to local memory first.
+struct Level {
+  int h, w, start, th, tw, tile0;
+  __device__ __forceinline__ int tiles_x() const { return (w + tw - 1) / tw; }
+  __device__ __forceinline__ int tiles_y() const { return (h + th - 1) / th; }
+};
+
+__device__ __forceinline__ Level level(const Levels& lv, int lvl) {
+  Level l = {lv.h[0], lv.w[0], lv.start[0], lv.th[0], lv.tw[0], lv.tile0[0]};
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i)
+    if (lvl == i) l = {lv.h[i], lv.w[i], lv.start[i], lv.th[i], lv.tw[i], lv.tile0[i]};
+  return l;
 }
+
+// A lane's 4 channels of one V row as one load returns them: a float4, or a
+// uint2 of 4 bf16. The words stay in registers until the FMAs, where bf16 is
+// widened exactly (a shift or a mask of the word), so bf16 V gives the f32
+// route's bits on V.float(); widened at the load, the bf16 route ran 43%
+// slower than the f32 one on the H100 once the d value atomics were gone.
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  using type = float4;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = uint2;
+};
+__device__ __forceinline__ float4 ld_raw(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ uint2 ld_raw(const __nv_bfloat16* p) { return __ldg(reinterpret_cast<const uint2*>(p)); }
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // The tent max(0, 1 - |g - i|) at cell i and its slope in g, as JAX differentiates it.
 __device__ __forceinline__ void tent(float g, float i, float& value, float& slope) {
@@ -85,25 +152,64 @@ __device__ __forceinline__ void tent(float g, float i, float& value, float& slop
   slope = t > 0.f ? sign : (t == 0.f ? 0.5f * sign : 0.f);
 }
 
-template <int HD>
-__host__ __device__ constexpr int pairs_per_block() { return kThreads / (HD / 4); }
+// A point's pixel coordinates, as the pair kernel computes them.
+__device__ __forceinline__ float2 pixel_xy(float2 xy, int hh, int ww, int normalized) {
+  if (normalized) {
+    xy.x = __fsub_rn(__fmul_rn(xy.x, (float)ww), 0.5f);
+    xy.y = __fsub_rn(__fmul_rn(xy.y, (float)hh), 0.5f);
+  }
+  return xy;
+}
+
+// A point's value corners: cells (y0 + dy, x0 + dx), dy, dx in {0, 1}, with the
+// tent values wy[dy], wx[dx]; `inside` false where no corner can be on the map
+// (NaN included), as in the pair kernel.
+struct Corners {
+  int x0, y0;
+  float wx[2], wy[2];
+  bool inside;
+};
+
+__device__ __forceinline__ Corners value_corners(float2 g, int hh, int ww) {
+  Corners c;
+  const float x0f = floorf(g.x);
+  const float y0f = floorf(g.y);
+  c.inside = x0f >= -2.f && x0f <= (float)ww && y0f >= -2.f && y0f <= (float)hh;
+  c.x0 = c.inside ? (int)x0f : 0;
+  c.y0 = c.inside ? (int)y0f : 0;
+  float slope;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    tent(g.x, x0f + (float)j, c.wx[j], slope);
+    tent(g.y, y0f + (float)j, c.wy[j], slope);
+  }
+  return c;
+}
+
+// Corner k (dy = k >> 1, dx = k & 1) is listed: on the map with a non-zero tent value.
+__device__ __forceinline__ bool corner_on(const Corners& c, int k, int hh, int ww) {
+  const int yy = c.y0 + (k >> 1);
+  const int xx = c.x0 + (k & 1);
+  return c.inside && yy >= 0 && yy < hh && xx >= 0 && xx < ww && c.wy[k >> 1] * c.wx[k & 1] != 0.f;
+}
 
 template <typename T, int HD, int NL, int P>
-__global__ void __launch_bounds__(kThreads, 2) deform_sample_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2) deform_sample_bwd_kernel(
     const T* __restrict__ value, const float* __restrict__ loc, const float* __restrict__ aw,
-    const float* __restrict__ grad_out, float* __restrict__ d_value, float* __restrict__ d_loc,
-    float* __restrict__ d_aw, Levels lv, long long pairs, int nh, int nq, int ltot, int normalized) {
+    const float* __restrict__ grad_out, float* __restrict__ d_loc, float* __restrict__ d_aw, Levels lv,
+    long long pairs, int nh, int nq, int ltot, int normalized) {
   constexpr int kLanes = HD / 4;              // lanes per (query, head) pair
+  constexpr int kPairs = kThreads / kLanes;   // pairs per block
   constexpr int kLanesPerPoint = kLanes / P;  // lanes that list one point's candidate cells
   constexpr int kRows = 4 / kLanesPerPoint;   // candidate rows per lane
   constexpr unsigned kSegMask = (1u << kLanes) - 1u;
   static_assert(P == 4 && kLanes % P == 0, "a point's candidates are split over whole lanes");
-  __shared__ int4 lists[pairs_per_block<HD>()][kMaxEntries];
+  __shared__ int4 lists[kPairs][kMaxEntries];
 
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
   const int pair = threadIdx.x / kLanes;
-  long long slot = (long long)blockIdx.x * pairs_per_block<HD>() + pair;
+  long long slot = (long long)blockIdx.x * kPairs + pair;
   // Lanes past the last pair compute on it (the shuffles need the whole warp)
   // and write nothing.
   const bool live = slot < pairs;
@@ -130,18 +236,13 @@ __global__ void __launch_bounds__(kThreads, 2) deform_sample_bwd_kernel(
     const int hh = lv.h[lvl];
     const int ww = lv.w[lvl];
     const T* vl = value + vbase + (long long)lv.start[lvl] * pix;
-    float* dvl = d_value + vbase + (long long)lv.start[lvl] * pix;
     const long long pt0 = (pr * NL + lvl) * P;  // the pair's first point at this level
 
-    // (a) This lane's candidate cells: rows jy0 .. jy0 + kRows - 1 of the 4 x 4
+    // This lane's candidate cells: rows jy0 .. jy0 + kRows - 1 of the 4 x 4
     // cells from floor - 1 of point p_own, with their tent weights.
-    const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + pt0 + p_own);
+    const float2 xy = pixel_xy(__ldg(reinterpret_cast<const float2*>(loc) + pt0 + p_own), hh, ww, normalized);
     const float a_own = __ldg(aw + pt0 + p_own);
-    float x = xy.x, y = xy.y;
-    if (normalized) {
-      x = __fsub_rn(__fmul_rn(x, (float)ww), 0.5f);
-      y = __fsub_rn(__fmul_rn(y, (float)hh), 0.5f);
-    }
+    const float x = xy.x, y = xy.y;
     const float x0f = floorf(x);
     const float y0f = floorf(y);
     // Cells floor - 1 .. floor + 2 can matter, so x0 from -2 to w; false for NaN.
@@ -154,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 2) deform_sample_bwd_kernel(
 #pragma unroll
     for (int r = 0; r < kRows; ++r) tent(y, y0f + (float)(jy0 + r - 1), wy[r], dy[r]);
 
-    // (b) The pair's cells of non-zero tent value or slope, listed in the order
+    // The pair's cells of non-zero tent value or slope, listed in the order
     // (candidate, lane): (row << 16 | column << 2 | point, value, x slope, y slope).
     int n = 0;
 #pragma unroll
@@ -178,45 +279,39 @@ __global__ void __launch_bounds__(kThreads, 2) deform_sample_bwd_kernel(
 #pragma unroll
     for (int q = 0; q < P; ++q) a[q] = __shfl_sync(0xffffffffu, a_own, q * kLanesPerPoint, kLanes);
 
-    // (c) Every listed cell: V loads kBatch at a time, then the dot with
-    // grad_out, the partial d weight and d location of its point, and d value.
+    // Every listed cell: V loads kBatch at a time, then the dot with grad_out
+    // and the partial d weight and d location of its point.
     float s_aw[P], s_gx[P], s_gy[P];  // partial sums over this lane's channels
 #pragma unroll
     for (int q = 0; q < P; ++q) s_aw[q] = s_gx[q] = s_gy[q] = 0.f;
     const int nmax = __reduce_max_sync(0xffffffffu, n);
     for (int e0 = 0; e0 < nmax; e0 += kBatch) {
       int4 ent[kBatch];
-      float4 v[kBatch];
+      typename Raw<T>::type raw[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const bool ok = e0 + k < n;
         ent[k] = ok ? list[e0 + k] : make_int4(0, 0, 0, 0);  // weights 0
         const long long off = (long long)((ent[k].x >> 16) * ww + ((ent[k].x >> 2) & 0x3fff)) * pix;
-        v[k] = ok ? ldg4(vl + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+        raw[k] = ok ? ld_raw(vl + off) : typename Raw<T>::type{};
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const int p = ent[k].x & 3;
         const float cw = __int_as_float(ent[k].y);
-        const float dot = g.x * v[k].x + g.y * v[k].y + g.z * v[k].z + g.w * v[k].w;
-        float ap = 0.f;
+        const float4 v = widen(raw[k]);
+        const float dot = g.x * v.x + g.y * v.y + g.z * v.z + g.w * v.w;
 #pragma unroll
         for (int q = 0; q < P; ++q)
           if (p == q) {
             s_aw[q] = fmaf(cw, dot, s_aw[q]);
             s_gx[q] = fmaf(__int_as_float(ent[k].z), dot, s_gx[q]);
             s_gy[q] = fmaf(__int_as_float(ent[k].w), dot, s_gy[q]);
-            ap = a[q];
           }
-        const float cv = ap * cw;
-        if (live && cv != 0.f) {
-          const long long off = (long long)((ent[k].x >> 16) * ww + ((ent[k].x >> 2) & 0x3fff)) * pix;
-          atomicAdd(reinterpret_cast<float4*>(dvl + off), make_float4(cv * g.x, cv * g.y, cv * g.z, cv * g.w));
-        }
       }
     }
 
-    // (d) Reduce over the pair's lanes; lane p writes point p's d weight and d location.
+    // Reduce over the pair's lanes; lane p writes point p's d weight and d location.
 #pragma unroll
     for (int q = 0; q < P; ++q)
 #pragma unroll
@@ -237,73 +332,325 @@ __global__ void __launch_bounds__(kThreads, 2) deform_sample_bwd_kernel(
   }
 }
 
+// A point's tiles by parity class. A point's value corners lie in at most 2 x 2
+// neighbouring tiles, whose (row, column) parities all differ, so slot
+// (ty & 1) * 2 + (tx & 1) holds the tile it lists there (-1 for none): a tile
+// takes the same slot for every point that lists it.
+__device__ __forceinline__ void point_tiles(float2 g, const Level& L, int (&t)[4]) {
+  const Corners c = value_corners(g, L.h, L.w);
+  const int ntx = L.tiles_x();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) t[s] = -1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ty = (c.y0 + (k >> 1)) / L.th;
+    const int tx = (c.x0 + (k & 1)) / L.tw;
+    const bool on = corner_on(c, k, L.h, L.w);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (on && ((ty & 1) * 2 + (tx & 1)) == s) t[s] = ty * ntx + tx;
+  }
+}
+
+// (b) The bucketing: per (b, head) and tile over all levels, a bitmap over the
+// segment's points (bit i % 32 of word i / 32: point i lists the tile). A warp
+// takes one word, 32 consecutive points; per parity slot, __match_any_sync
+// gives the lanes that list the same tile, which is that tile's word, and the
+// lowest of them stores it. Every word is written by one lane at most (the
+// rest stay as the memset left them): no atomics, the same bits on every run.
+// Grid (word groups, segments), segment = (b * nh + h) * nl + lvl.
+__global__ void __launch_bounds__(kThreads) mark_kernel(const float* __restrict__ loc, Levels lv, int nl, int nq,
+                                                        int nh, int normalized, int words,
+                                                        unsigned* __restrict__ bitmap) {
+  const long long seg = blockIdx.y;
+  const int lvl = (int)(seg % nl);
+  const Level L = level(lv, lvl);
+  const long long bh = seg / nl;
+  const int word = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int i = word * 32 + lane;
+  float2 g = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no corner, past the last point
+  if (i < nq * kPoints) {
+    const long long pt = ((((bh / nh) * nq + i / kPoints) * nh + bh % nh) * nl + lvl) * kPoints + i % kPoints;
+    g = pixel_xy(__ldg(reinterpret_cast<const float2*>(loc) + pt), L.h, L.w, normalized);
+  }
+  int t[4];
+  point_tiles(g, L, t);
+  unsigned* bm = bitmap + (bh * lv.tile0[kMaxLevels] + L.tile0) * words + word;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const unsigned m = __match_any_sync(0xffffffffu, t[s]);
+    if (t[s] >= 0 && lane == __ffs(m) - 1) bm[(long long)t[s] * words] = m;
+  }
+}
+
+// d += cv * g on a lane's hd / 8 channels (float4 at hd 32, float2 at hd 16).
+template <int N>
+struct Vec;
+template <>
+struct Vec<4> {
+  using type = float4;
+  __device__ static __forceinline__ void axpy(float* d, float cv, float4 g) {
+    float4 a = *reinterpret_cast<float4*>(d);
+    a.x = fmaf(cv, g.x, a.x);
+    a.y = fmaf(cv, g.y, a.y);
+    a.z = fmaf(cv, g.z, a.z);
+    a.w = fmaf(cv, g.w, a.w);
+    *reinterpret_cast<float4*>(d) = a;
+  }
+};
+template <>
+struct Vec<2> {
+  using type = float2;
+  __device__ static __forceinline__ void axpy(float* d, float cv, float2 g) {
+    float2 a = *reinterpret_cast<float2*>(d);
+    a.x = fmaf(cv, g.x, a.x);
+    a.y = fmaf(cv, g.y, a.y);
+    *reinterpret_cast<float2*>(d) = a;
+  }
+};
+
+constexpr int kWindow = 4 * kThreads;  // bitmap words a gather block counts at a time
+constexpr int kListCap = 2048;         // points a gather block lists in shared memory at a time
+
+// (c) One block per tile (blockIdx.x over all levels' tiles, blockIdx.y = b * nh + h).
+// The block lists the tile's points in shared memory, in ascending order (each
+// thread counts 4 bitmap words, a block scan gives each its place), and warp w
+// takes the w-th eighth of the list, 32 points at a time: lane j computes point
+// j's grad_out row, its corners' places in the tile and their weights aw * ty *
+// tx with (a)'s arithmetic; then the warp adds the points one by one into its
+// own copy of the tile, 8 lanes per corner (the 4 corners are 4 cells, so they
+// never collide) and hd / 8 channels per lane, 8 grad_out rows in flight.
+template <typename T, int HD, int NL>
+__global__ void __launch_bounds__(kThreads, 3) gather_dv_kernel(
+    const float* __restrict__ loc, const float* __restrict__ aw, const float* __restrict__ grad_out,
+    T* __restrict__ d_value, const unsigned* __restrict__ bitmap, Levels lv, int nq, int nh, int ltot,
+    int normalized, int words) {
+  constexpr int kCpl = HD / 8;  // channels per lane
+  using V = Vec<kCpl>;
+  extern __shared__ __align__(16) float acc[];  // [warp][cell][hd]: the warps' copies of the tile
+  __shared__ int list[kListCap];
+  __shared__ int warp_sums[kWarps];
+  __shared__ int meta_row[kWarps][32];    // a batch's grad_out rows, as offsets from query 0's
+  __shared__ int2 meta_c[kWarps][32][4];  // and per corner (offset in the copy or -1, weight bits)
+  int lvl = 0;
+#pragma unroll
+  for (int j = 1; j < NL; ++j) lvl += (int)blockIdx.x >= lv.tile0[j];
+  const Level L = level(lv, lvl);
+  const int tile = (int)blockIdx.x - L.tile0;
+  const long long bh = blockIdx.y;
+  const int h = (int)(bh % nh);
+  const long long b = bh / nh;
+  const int ntx = L.tiles_x();
+  const int ty0 = tile / ntx * L.th, tx0 = tile % ntx * L.tw;
+  const int cells = L.th * L.tw;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int corner = lane >> 3;
+  for (int i = threadIdx.x; i < kWarps * cells * HD; i += kThreads) acc[i] = 0.f;
+  float* mine = acc + (size_t)warp * cells * HD + (lane & 7) * kCpl;
+  const unsigned* bm = bitmap + (bh * lv.tile0[NL] + blockIdx.x) * words;
+  const float* gbase = grad_out + (b * nq * nh + h) * HD + (lane & 7) * kCpl;  // query 0's row, this lane's channels
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  const long long pr0 = b * nq * nh + h;
+
+  for (int w0 = 0; w0 < words; w0 += kWindow) {
+    unsigned wd[4];
+    int cnt = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = w0 + threadIdx.x * 4 + r;
+      wd[r] = i < words ? __ldg(bm + i) : 0u;
+      cnt += __popc(wd[r]);
+    }
+    int x = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int s = warp_sums[w];
+      before += w < warp ? s : 0;
+      total += s;
+    }
+    before += x - cnt;
+    for (int c0 = 0; c0 < total; c0 += kListCap) {
+      int k = before;  // this thread's points, with their places in the list
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        unsigned m = wd[r];
+        const int base = (w0 + threadIdx.x * 4 + r) * 32;
+        while (m != 0u) {
+          const int bit = __ffs(m) - 1;
+          m &= m - 1u;
+          if (k >= c0 && k < c0 + kListCap) list[k - c0] = base + bit;
+          ++k;
+        }
+      }
+      __syncthreads();
+      const int n = min(kListCap, total - c0);
+      const int e1 = n * (warp + 1) / kWarps;
+      for (int e0 = n * warp / kWarps; e0 < e1; e0 += 32) {
+        int row = 0;
+        int2 c4[4] = {make_int2(-1, 0), make_int2(-1, 0), make_int2(-1, 0), make_int2(-1, 0)};
+        if (e0 + lane < e1) {
+          const int i = list[e0 + lane];
+          const int q = i / kPoints;
+          const long long pt = ((pr0 + (long long)q * nh) * NL + lvl) * kPoints + i % kPoints;
+          const Corners cr = value_corners(pixel_xy(__ldg(loc2 + pt), L.h, L.w, normalized), L.h, L.w);
+          const float a = __ldg(aw + pt);
+          row = q * nh * HD;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int yy = cr.y0 + (c >> 1) - ty0;
+            const int xx = cr.x0 + (c & 1) - tx0;
+            if (corner_on(cr, c, L.h, L.w) && yy >= 0 && yy < L.th && xx >= 0 && xx < L.tw)
+              c4[c] = make_int2((yy * L.tw + xx) * HD, __float_as_int(a * (cr.wy[c >> 1] * cr.wx[c & 1])));
+          }
+        }
+        meta_row[warp][lane] = row;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) meta_c[warp][lane][c] = c4[c];
+        __syncwarp();
+        const int m = min(32, e1 - e0);
+        for (int j0 = 0; j0 < m; j0 += kGather) {
+          typename V::type gv[kGather];
+          int2 cw[kGather];
+#pragma unroll
+          for (int kk = 0; kk < kGather; ++kk) {
+            const int j = min(j0 + kk, 31);
+            cw[kk] = j0 + kk < m ? meta_c[warp][j][corner] : make_int2(-1, 0);
+            gv[kk] = __ldg(reinterpret_cast<const typename V::type*>(gbase + meta_row[warp][j]));
+          }
+#pragma unroll
+          for (int kk = 0; kk < kGather; ++kk)
+            if (cw[kk].x >= 0) V::axpy(mine + cw[kk].x, __int_as_float(cw[kk].y), gv[kk]);
+        }
+        __syncwarp();  // the batch is read before the next one is written
+      }
+      __syncthreads();  // the list is read before it is written again
+    }
+    __syncthreads();  // warp_sums are read before the next window writes them
+  }
+
+  // The warps' copies summed in warp order; each cell of the tile on the map written once.
+  const long long pix = (long long)nh * HD;
+  T* dv = d_value + (b * ltot + L.start) * pix + (long long)h * HD;
+  for (int i = threadIdx.x; i < cells * HD; i += kThreads) {
+    const int cell = i / HD;
+    const int yy = ty0 + cell / L.tw, xx = tx0 + cell % L.tw;
+    if (yy >= L.h || xx >= L.w) continue;
+    float s = acc[i];
+#pragma unroll
+    for (int j = 1; j < kWarps; ++j) s += acc[(size_t)j * cells * HD + i];
+    store(dv + (long long)(yy * L.w + xx) * pix + i % HD, s);
+  }
+}
+
 template <typename T, int HD, int NL>
 int launch_levels(const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value,
-                  void* d_loc, void* d_aw, const Levels& lv, long long pairs, int nh, int nq, int ltot,
-                  int normalized, cudaStream_t s) {
-  const unsigned grid = (unsigned)((pairs + pairs_per_block<HD>() - 1) / pairs_per_block<HD>());
-  deform_sample_bwd_kernel<T, HD, NL, 4><<<grid, kThreads, 0, s>>>(
-      (const T*)value, (const float*)loc, (const float*)aw, (const float*)grad_out, (float*)d_value,
-      (float*)d_loc, (float*)d_aw, lv, pairs, nh, nq, ltot, normalized);
+                  void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv, int words,
+                  int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
+  constexpr int kPairs = kThreads / (HD / 4);
+  const long long pairs = (long long)b * nq * nh;
+  int max_cells = 0;
+  for (int i = 0; i < NL; ++i) max_cells = lv.th[i] * lv.tw[i] > max_cells ? lv.th[i] * lv.tw[i] : max_cells;
+  const size_t gather_smem = (size_t)kWarps * max_cells * HD * sizeof(float);  // the warps' copies of the tile
+  static bool attr_set = false;  // the copies and the static lists pass the default 48 KB
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(gather_dv_kernel<T, HD, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)((size_t)kWarps * kMaxTileCells * HD * sizeof(float)));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  deform_sample_bwd_kernel<T, HD, NL, kPoints><<<(unsigned)((pairs + kPairs - 1) / kPairs), kThreads, 0, s>>>(
+      (const T*)value, (const float*)loc, (const float*)aw, (const float*)grad_out, (float*)d_loc, (float*)d_aw, lv,
+      pairs, nh, nq, ltot, normalized);
+  cudaError_t e = cudaMemsetAsync(bitmap, 0, (size_t)bitmap_words * sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  mark_kernel<<<dim3((unsigned)((words + kWarps - 1) / kWarps), (unsigned)((long long)b * nh * NL)), kThreads, 0, s>>>(
+      (const float*)loc, lv, NL, nq, nh, normalized, words, bitmap);
+  gather_dv_kernel<T, HD, NL><<<dim3((unsigned)lv.tile0[NL], (unsigned)(b * nh)), kThreads, gather_smem, s>>>(
+      (const float*)loc, (const float*)aw, (const float*)grad_out, (T*)d_value, bitmap, lv, nq, nh, ltot, normalized,
+      words);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int dispatch_nl(int nl, const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value,
-                void* d_loc, void* d_aw, const Levels& lv, long long pairs, int nh, int nq, int ltot,
-                int normalized, cudaStream_t s) {
+                void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv, int words, int b,
+                int nq, int nh, int ltot, int normalized, cudaStream_t s) {
   switch (nl) {  // the per-level entry and the model's three levels
     case 1:
-      return launch_levels<T, HD, 1>(value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq, ltot,
-                                     normalized, s);
+      return launch_levels<T, HD, 1>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words,
+                                     b, nq, nh, ltot, normalized, s);
     case 3:
-      return launch_levels<T, HD, 3>(value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq, ltot,
-                                     normalized, s);
+      return launch_levels<T, HD, 3>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words,
+                                     b, nq, nh, ltot, normalized, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch_hd(int hd, int nl, const void* value, const void* loc, const void* aw, const void* grad_out,
-                void* d_value, void* d_loc, void* d_aw, const Levels& lv, long long pairs, int nh, int nq,
-                int ltot, int normalized, cudaStream_t s) {
+                void* d_value, void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv,
+                int words, int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return dispatch_nl<T, 16>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq, ltot,
-                                normalized, s);
+      return dispatch_nl<T, 16>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words, b,
+                                nq, nh, ltot, normalized, s);
     case 32:
-      return dispatch_nl<T, 32>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq, ltot,
-                                normalized, s);
+      return dispatch_nl<T, 32>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words, b,
+                                nq, nh, ltot, normalized, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// levels: nl triples (h, w, start) on the host; nl 1 or 3, P 4, hd 16 or 32.
-// grad_out, d_value, d_loc and d_aw are float32; d_value must be zeroed by the
-// caller. All pointers must be 16-byte aligned.
+// levels: nl quintuples (h, w, start, tile rows, tile columns) on the host; nl 1
+// or 3, P 4, hd 16 or 32. The levels must lie in consecutive rows of value from
+// `start`; rows past the last level are not written. grad_out, d_loc and d_aw
+// are float32; d_value has value's dtype (float32 or bfloat16, v_bf16) and is
+// written whole over the levels' rows. scratch: the bitmaps, scratch_ints
+// 32-bit words = b * nh * (all levels' tiles) * ceil(nq * P / 32), which the
+// wrapper computes the same way. All pointers must be 16-byte aligned.
 extern "C" int rgbd_deform_sample_bwd(
     const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value, void* d_loc,
-    void* d_aw, const int* levels, int b, int nq, int nh, int nl, int npts, int hd, int ltot, int normalized,
-    int v_bf16, void* stream) {
-  if (nl < 1 || nl > kMaxLevels || npts != 4) return (int)cudaErrorInvalidValue;
+    void* d_aw, void* scratch, long long scratch_ints, const int* levels, int b, int nq, int nh, int nl, int npts,
+    int hd, int ltot, int normalized, int v_bf16, void* stream) {
+  if (nl < 1 || nl > kMaxLevels || npts != kPoints) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)value | (uintptr_t)loc | (uintptr_t)aw | (uintptr_t)grad_out | (uintptr_t)d_value |
-       (uintptr_t)d_loc | (uintptr_t)d_aw) % 16 != 0)
+       (uintptr_t)d_loc | (uintptr_t)d_aw | (uintptr_t)scratch) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   Levels lv = {};
   for (int i = 0; i < nl; ++i) {
-    lv.h[i] = levels[3 * i];
-    lv.w[i] = levels[3 * i + 1];
-    lv.start[i] = levels[3 * i + 2];
-    if (lv.h[i] >= (1 << 15) || lv.w[i] >= (1 << 14)) return (int)cudaErrorInvalidValue;  // the list's packing
+    lv.h[i] = levels[5 * i];
+    lv.w[i] = levels[5 * i + 1];
+    lv.start[i] = levels[5 * i + 2];
+    lv.th[i] = levels[5 * i + 3];
+    lv.tw[i] = levels[5 * i + 4];
+    if (lv.h[i] < 1 || lv.w[i] < 1 || lv.h[i] >= (1 << 15) || lv.w[i] >= (1 << 14)) return (int)cudaErrorInvalidValue;
+    if (lv.th[i] < 1 || lv.tw[i] < 1 || lv.th[i] * lv.tw[i] > kMaxTileCells) return (int)cudaErrorInvalidValue;
+    const int tiles = ((lv.w[i] + lv.tw[i] - 1) / lv.tw[i]) * ((lv.h[i] + lv.th[i] - 1) / lv.th[i]);
+    if (tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
+    lv.tile0[i + 1] = lv.tile0[i] + tiles;
   }
-  const long long pairs = (long long)b * nq * nh;
-  if (pairs == 0) return (int)cudaSuccess;
+  for (int i = nl + 1; i <= kMaxLevels; ++i) lv.tile0[i] = lv.tile0[nl];  // every level's tiles: tile0[kMaxLevels]
+  if ((long long)b * nq * nh == 0) return (int)cudaSuccess;
+  const int words = (int)(((long long)nq * kPoints + 31) / 32);
+  if ((long long)b * nh * lv.tile0[nl] * words != scratch_ints) return (int)cudaErrorInvalidValue;
+  if ((long long)nq * nh * hd >= (1LL << 31)) return (int)cudaErrorInvalidValue;  // the gather's int row offsets
   cudaStream_t s = (cudaStream_t)stream;
+  unsigned* bitmap = (unsigned*)scratch;
   if (v_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq,
-                                      ltot, normalized, s);
-  return dispatch_hd<float>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, lv, pairs, nh, nq, ltot,
-                            normalized, s);
+    return dispatch_hd<__nv_bfloat16>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, scratch_ints,
+                                      lv, words, b, nq, nh, ltot, normalized, s);
+  return dispatch_hd<float>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, scratch_ints, lv, words,
+                            b, nq, nh, ltot, normalized, s);
 }

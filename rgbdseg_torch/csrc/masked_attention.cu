@@ -34,10 +34,10 @@
 //    of 3 tiles, 200 blocks (38 splits of 2 tiles would need 1.15 waves).
 //  - k, v and mask tiles are staged with 16-byte cp.async (4-byte where K is
 //    not a multiple of 4), double-buffered.
-//  - The products run on the tensor cores as mma.sync m16n8k8 TF32 with the
-//    error-compensated split x = hi + lo (hi = tf32(x), lo = tf32(x - hi)) and
-//    three products hi*hi + hi*lo + lo*hi per step, which keeps the f32
-//    comparison with the plain version within 1e-5 (one TF32 product would
+//  - float32: the products run on the tensor cores as mma.sync m16n8k8 TF32
+//    with the error-compensated split x = hi + lo (hi = tf32(x), lo = tf32(x -
+//    hi)) and three products hi*hi + hi*lo + lo*hi per step, which keeps the
+//    f32 comparison with the plain version within 1e-5 (one TF32 product would
 //    not). A warp owns 16 query rows: its q fragments (already split) stay in
 //    registers for the whole kernel; per 64-key tile it computes the 16 x 64
 //    scores into accumulators, applies the mask there, takes the row max over
@@ -47,6 +47,18 @@
 //    (v) is read with the keys permuted to match the accumulator layout
 //    (k-index t <-> key 2t, t + 4 <-> key 2t + 1 within each block of 8).
 //    Scores are kept in log2 units (q times log2(e)), so exp2 replaces exp.
+//  - bfloat16: what the JAX kernel computes at Precision.DEFAULT, bf16
+//    products with float32 sums (mma.sync m16n8k16, csrc/mma_bf16.cuh), half
+//    the depth steps of m16n8k8 and one product each where 3xTF32 took three
+//    (a bf16 value is exact in TF32, so two of them added zeros). q's
+//    fragments are loaded as they are; log2(e) multiplies the float32 scores
+//    after the product (multiplying q first would round it into bf16). The
+//    mask, the running max and sum and the partials are the float32 route's;
+//    p = exp2(s - m) enters the sum unrounded and is rounded to bf16 for
+//    p @ v, as the JAX kernel rounds it: the score accumulators of two
+//    neighbouring 8-key blocks, packed pairwise (cvt.rn.bf16x2.f32), are the
+//    A fragment of 16 keys, and v's B fragments come from ldmatrix .trans of
+//    the staged bf16 tile, the keys in order.
 //  - Each block writes (running max, running sum, unnormalised accumulator) per
 //    row to a scratch tensor; the combine kernel (one warp per row) rescales by
 //    exp2(m_s - max_s m_s), sums over the splits and normalises. Where the caller
@@ -58,6 +70,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -93,7 +108,9 @@ __global__ void __launch_bounds__(32 * kMaxRows / kRowsPerWarp, HD <= 32 ? 2 : 1
     float* __restrict__ part_o, float* __restrict__ part_ml,
     int nh, int nq, int nk, int q_rows, int qtiles, int tiles_per_split, int splits, int mask_vec) {
   using L = Layout<T, HD>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kSteps = HD / 8;  // m16n8k8 steps over hd (q.k) and n-tiles over hd (p.v)
+  constexpr int kBf16Steps = HD / 16;  // m16n8k16 steps over hd (q.k, bf16)
   constexpr int kChunks = HD * (int)sizeof(T) / 16;  // 16-byte chunks per k/v row
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -156,24 +173,37 @@ __global__ void __launch_bounds__(32 * kMaxRows / kRowsPerWarp, HD <= 32 ? 2 : 1
   issue_tile(0);
   cp_async_commit();
 
-  // This warp's rows are r0 = warp * 16 + g and r0 + 8. Their q fragments (times
-  // log2(e), split into hi and lo), zero for padding rows.
+  // This warp's rows are r0 = warp * 16 + g and r0 + 8. Their q fragments, zero
+  // for padding rows: float32 q times log2(e), split into hi and lo; bf16 q as
+  // it is (m16n8k16 A fragments, two bf16 per register).
   const int r0 = warp * kRowsPerWarp + g;
   uint32_t qhi[kSteps][4], qlo[kSteps][4];
+  uint32_t qa[kBf16Steps][4];
   bool exempt[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = q0 + r0 + 8 * half;
     exempt[half] = qi >= nq || all_blocked[(long long)b * nq + qi] != 0;
   }
+  if constexpr (kBf16) {
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s)
+    for (int s = 0; s < kBf16Steps; ++s)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-      const int qi = q0 + r0 + 8 * (e & 1);
-      const float x = qi < nq ? to_f32(q[(bh * nq + qi) * HD + 8 * s + t + 4 * (e >> 1)]) * kLog2e : 0.f;
-      split_tf32(x, qhi[s][e], qlo[s][e]);
-    }
+      for (int e = 0; e < 4; ++e) {  // a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..)
+        const int qi = q0 + r0 + 8 * (e & 1);
+        qa[s][e] = qi < nq ? *reinterpret_cast<const uint32_t*>(q + (bh * nq + qi) * HD + 16 * s + 2 * t + 8 * (e >> 1))
+                           : 0u;
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const int qi = q0 + r0 + 8 * (e & 1);
+        const float x = qi < nq ? to_f32(q[(bh * nq + qi) * HD + 8 * s + t + 4 * (e >> 1)]) * kLog2e : 0.f;
+        split_tf32(x, qhi[s][e], qlo[s][e]);
+      }
+  }
 
   float m_run[2] = {kInit, kInit};
   float l_run[2] = {0.f, 0.f};
@@ -201,13 +231,30 @@ __global__ void __launch_bounds__(32 * kMaxRows / kRowsPerWarp, HD <= 32 ? 2 : 1
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (kBf16) {
+      // bf16 products, float32 sums: the JAX kernel's q . k at Precision.DEFAULT.
+      // b0 = (k = 2t..2t+1, key g), b1 = (k = 2t+8.., key g): two bf16 of k's row.
 #pragma unroll
-    for (int st = 0; st < kSteps; ++st)
+      for (int st = 0; st < kBf16Steps; ++st)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const T* kr = kt + (8 * n + g) * L::kKS + 8 * st + t;  // b0 (k = t, key g), b1 (k = t + 4)
-        mma_3xtf32(s[n], qhi[st], qlo[st], to_f32(kr[0]), to_f32(kr[4]));
-      }
+        for (int n = 0; n < 8; ++n) {
+          const T* kr = kt + (8 * n + g) * L::kKS + 16 * st + 2 * t;
+          mma_bf16(s[n], qa[st], *reinterpret_cast<const uint32_t*>(kr), *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      // Scores in log2 units, scaled after the product so that q is not rounded with log2(e).
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= kLog2e;
+    } else {
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const T* kr = kt + (8 * n + g) * L::kKS + 8 * st + t;  // b0 (k = t, key g), b1 (k = t + 4)
+          mma_3xtf32(s[n], qhi[st], qlo[st], to_f32(kr[0]), to_f32(kr[4]));
+        }
+    }
 
     // Mask, then the online softmax per row (max over the 4 lanes of a row).
     float mt[2] = {kInit, kInit};
@@ -245,20 +292,41 @@ __global__ void __launch_bounds__(32 * kMaxRows / kRowsPerWarp, HD <= 32 ? 2 : 1
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 
-    // p @ v, 8 keys per step. The A operand is the score accumulator of block j
-    // as it stands (a0 = (g, key 2t), a1 = (g + 8, key 2t), a2 = (g, key 2t + 1),
-    // a3 = (g + 8, key 2t + 1)), so v's rows are read as keys 2t and 2t + 1.
+    if constexpr (kBf16) {
+      // p @ v, 16 keys per step, p rounded to bf16 as the JAX kernel rounds it
+      // (the running sum above took it unrounded). The A fragment is the score
+      // accumulators of key blocks 2j and 2j + 1 packed pairwise; v's B
+      // fragments come from ldmatrix .trans of 8 x 8 blocks (keys x channels):
+      // matrix i of an x4 is keys 16j + 8 (i & 1) .., channels 8 (n + (i >> 1)) ..
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t phi[4], plo[4];
-      split_tf32(s[j][0], phi[0], plo[0]);
-      split_tf32(s[j][2], phi[1], plo[1]);
-      split_tf32(s[j][1], phi[2], plo[2]);
-      split_tf32(s[j][3], phi[3], plo[3]);
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
-      for (int n = 0; n < kSteps; ++n) {
-        const T* vr = vt + (8 * j + 2 * t) * L::kKS + 8 * n + g;
-        mma_3xtf32(o[n], phi, plo, to_f32(vr[0]), to_f32(vr[L::kKS]));
+        for (int n = 0; n < kSteps; n += 2) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vt + (16 * j + 8 * ((lane >> 3) & 1) + (lane & 7)) * L::kKS + 8 * (n + (lane >> 4)));
+          mma_bf16(o[n], pa, vb[0], vb[1]);
+          mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    } else {
+      // p @ v, 8 keys per step. The A operand is the score accumulator of block j
+      // as it stands (a0 = (g, key 2t), a1 = (g + 8, key 2t), a2 = (g, key 2t + 1),
+      // a3 = (g + 8, key 2t + 1)), so v's rows are read as keys 2t and 2t + 1.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t phi[4], plo[4];
+        split_tf32(s[j][0], phi[0], plo[0]);
+        split_tf32(s[j][2], phi[1], plo[1]);
+        split_tf32(s[j][1], phi[2], plo[2]);
+        split_tf32(s[j][3], phi[3], plo[3]);
+#pragma unroll
+        for (int n = 0; n < kSteps; ++n) {
+          const T* vr = vt + (8 * j + 2 * t) * L::kKS + 8 * n + g;
+          mma_3xtf32(o[n], phi, plo, to_f32(vr[0]), to_f32(vr[L::kKS]));
+        }
       }
     }
     __syncthreads();
@@ -375,7 +443,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
 // part_o: float32 scratch of b*nh*nq*splits*hd; part_ml: of b*nh*nq*splits*2;
 // lse: float32 (b, nh, nq) for the rows' log-sum-exp. The keys are
 // cut into `splits` chunks of `tiles_per_split` 64-key tiles
-// (splits == ceil(ceil(nk / 64) / tiles_per_split)). k and v must be 16-byte aligned.
+// (splits == ceil(ceil(nk / 64) / tiles_per_split)). k and v must be 16-byte
+// aligned, q 4-byte aligned.
 extern "C" int rgbd_masked_cross_attention(
     const void* q, const void* k, const void* v, const void* mask, const void* all_blocked,
     void* out, void* part_o, void* part_ml, void* lse, int b, int nh, int nq, int nk, int hd,
@@ -384,7 +453,7 @@ extern "C" int rgbd_masked_cross_attention(
   const int ntiles = (nk + kTileK - 1) / kTileK;
   if (nk <= 0 || tiles_per_split <= 0 || splits != (ntiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (((uintptr_t)k | (uintptr_t)v) % 16 != 0 || (uintptr_t)q % 4 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, mask, all_blocked, out, part_o, part_ml, lse, b, nh, nq, nk,

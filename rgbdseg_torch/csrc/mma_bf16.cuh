@@ -1,5 +1,5 @@
-// Helpers for bfloat16 products on the tensor cores (the bf16 route of
-// masked_attention_bwd.cu): ldmatrix from bf16 shared memory, mma.sync
+// Helpers for bfloat16 products on the tensor cores (the bf16 routes of
+// masked_attention.cu and masked_attention_bwd.cu): ldmatrix from bf16 shared memory, mma.sync
 // m16n8k16 with float32 accumulation, and float32 accumulators packed into
 // bf16 A fragments.
 //

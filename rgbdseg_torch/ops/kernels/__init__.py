@@ -49,7 +49,8 @@ _SIGNATURES = {
     ),
     "deformable_bwd": (
         "rgbd_deform_sample_bwd",
-        [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 9
+        + [ctypes.c_void_p],
     ),
     "masked_attention": (
         "rgbd_masked_cross_attention",

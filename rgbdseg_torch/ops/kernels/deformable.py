@@ -11,9 +11,15 @@ kernel (`rgbdseg_torch/csrc/deformable.cu`) gathers the 4 bilinear corners
 directly, for all levels in one launch, hd / 4 lanes per (query, head) with a
 float4 of channels each. It is bound by memory on the H100 (see the source for
 the bytes and the design). Its backward (`csrc/deformable_bwd.cu`) is a kernel
-too, one launch per encoder layer as well: per level, each (query, head) pair
-lists its cells of non-zero tent value or slope in shared memory, then loads
-their V rows 8 at a time, and d value is added with float atomics.
+too, one call per encoder layer as well: a pair kernel computes d locations
+and d weights (per level, each (query, head) pair lists its cells of non-zero
+tent value or slope in shared memory, then loads their V rows 8 at a time); d
+value is summed in destination order, without float atomics: a bitmap per
+tile of the level's map marks the points with a value corner in it
+(`tile_plan` sizes the tiles, `tile_lists_plain` is the marked points' plain
+version), and one block per tile gathers those points' contributions in
+ascending order and writes each cell once, in V's dtype, with the same bits
+on every run.
 
 The gradient is the JAX package's: there the backward is the VJP of the tent
 twin `tent_sample_level_xla`, which differentiates t_i = max(0, 1 - |g - i|)
@@ -188,8 +194,68 @@ def _check_launch(value, locations, weights, spatial_shapes, starts):
     return b, l, nh, nl, npts, hd, ltot
 
 
-def _level_table(spatial_shapes, starts):
-    return (ctypes.c_int * (3 * len(starts)))(*(x for s, (h, w) in zip(starts, spatial_shapes) for x in (h, w, s)))
+def _level_table(spatial_shapes, starts, tiles=None):
+    """(h, w, start) per level for the forward; with `tiles`, (h, w, start, tile
+    rows, tile columns) for the backward."""
+    rows = [(h, w, s) if tiles is None else (h, w, s, *tiles[i])
+            for i, (s, (h, w)) in enumerate(zip(starts, spatial_shapes))]
+    return (ctypes.c_int * sum(map(len, rows)))(*(x for r in rows for x in r))
+
+
+# The backward's d-value tiles (csrc/deformable_bwd.cu): the shapes (rows,
+# columns) a level may take (kMaxTileCells cells at most), the points a tile
+# aims to list, and the most tiles a level may have (kMaxTiles).
+TILE_SHAPES = ((1, 1), (1, 2), (2, 2), (2, 4), (4, 4), (4, 8))
+TILE_ENTRIES = 768
+MAX_TILES = 1536
+
+
+def tile_plan(spatial_shapes, points: int) -> list[tuple[int, int]]:
+    """The backward's d-value tiles, (rows, columns) per level: the largest of
+    TILE_SHAPES whose cells hold at most TILE_ENTRIES points when `points`
+    points (per batch element and head) spread evenly over the level, so that
+    the tiles' lists are of similar length over levels of different sizes; a
+    larger one where that would make more than MAX_TILES tiles."""
+    plan = []
+    for h, w in spatial_shapes:
+        fits = [i for i, (th, tw) in enumerate(TILE_SHAPES) if th * tw * points <= TILE_ENTRIES * h * w]
+        few = [i for i, (th, tw) in enumerate(TILE_SHAPES) if -(-h // th) * -(-w // tw) <= MAX_TILES]
+        if not few:
+            raise ValueError(f"level {h}x{w}: the K1 backward takes at most {MAX_TILES} tiles of "
+                             f"{TILE_SHAPES[-1][0] * TILE_SHAPES[-1][1]} cells")
+        plan.append(TILE_SHAPES[max(fits[-1] if fits else 0, few[0])])
+    return plan
+
+
+def scratch_layout(spatial_shapes, tiles, segments: int, nq: int, npts: int = 4) -> tuple[int, int]:
+    """The bucketing's scratch, as the kernel lays it out: (words per bitmap,
+    total 32-bit words). Per (b, head), `segments` of them, and per tile over
+    all levels in order, a bitmap over the points of its level (bit i % 32 of
+    word i // 32: point i = query * P + p lists the tile)."""
+    words = -(-nq * npts // 32)
+    ntiles = sum(-(-h // th) * -(-w // tw) for (h, w), (th, tw) in zip(spatial_shapes, tiles))
+    return words, segments * ntiles * words
+
+
+def tile_lists_plain(gx, gy, h: int, w: int, tile) -> list[torch.Tensor]:
+    """Plain version of the backward's bucketing for one (b, head, level): gx,
+    gy (n,) the points' pixel coordinates in point order (query-major, P per
+    query). Per tile of `tile` = (rows, columns), in raster order, the indices
+    of the points with a value corner (a cell of non-zero tent value on the
+    map) in it, ascending, each once."""
+    th, tw = tile
+    ntx = -(-w // tw)
+    x0, wx, _ = _tent_factors(gx.float())
+    y0, wy, _ = _tent_factors(gy.float())
+    member = torch.zeros(-(-h // th) * ntx, gx.numel(), dtype=torch.bool, device=gx.device)
+    points = torch.arange(gx.numel(), device=gx.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            on = (xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= h - 1) & (wy[1 + dy] * wx[1 + dx] != 0)
+            tiles = yy.clamp(0, h - 1).long() // th * ntx + xx.clamp(0, w - 1).long() // tw
+            member[tiles[on], points[on]] = True
+    return [torch.nonzero(m).squeeze(1) for m in member]
 
 
 def _launch(value, locations, weights, spatial_shapes, starts, normalized: bool) -> torch.Tensor:
@@ -206,19 +272,36 @@ def _launch(value, locations, weights, spatial_shapes, starts, normalized: bool)
     return out
 
 
-def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: bool, grad_out):
-    """One K1 backward launch; returns float32 (d value, d locations, d weights)."""
+def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: bool, grad_out, scratch=None):
+    """One K1 backward call; returns (d value in value's dtype, d locations, d
+    weights float32). `scratch`: the bucketing's int32 buffer of
+    `scratch_layout`'s total (the tiles' bitmaps, left there), made here where
+    not given."""
     b, l, nh, nl, npts, hd, ltot = _check_launch(value, locations, weights, spatial_shapes, starts)
     grad_out = grad_out.float().contiguous()
     if grad_out.shape != (b, l, nh * hd):
         raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}; expected ({b}, {l}, {nh * hd})")
-    d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    if list(starts) != _level_starts(spatial_shapes):
+        raise ValueError(f"level starts {list(starts)}: the backward takes the levels in consecutive rows from 0")
     d_loc = torch.empty_like(locations)
     d_w = torch.empty_like(weights)
+    if b * l * nh == 0:
+        return torch.zeros_like(value), d_loc, d_w
+    d_value = torch.empty_like(value)  # the kernels write every row of the levels, in value's dtype
+    end = starts[-1] + spatial_shapes[-1][0] * spatial_shapes[-1][1]
+    if end < ltot:
+        d_value[:, end:].zero_()  # rows past the last level get no gradient
+    tiles = tile_plan(spatial_shapes, l * npts)
+    total = scratch_layout(spatial_shapes, tiles, b * nh, l, npts)[-1]
+    if scratch is None:
+        scratch = torch.empty(total, dtype=torch.int32, device=value.device)  # the kernels clear it
+    elif scratch.dtype != torch.int32 or scratch.numel() != total or not scratch.is_contiguous():
+        raise ValueError(f"scratch must be {total} contiguous int32, not {scratch.numel()} {scratch.dtype}")
     launch(
         "deformable_bwd",
         value.data_ptr(), locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
-        d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(), _level_table(spatial_shapes, starts),
+        d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(), scratch.data_ptr(), total,
+        _level_table(spatial_shapes, starts, tiles),
         b, l, nh, nl, npts, hd, ltot, int(normalized), int(value.dtype == torch.bfloat16),
         flops=16 * b * l * nh * nl * npts * hd,  # per corner: the product with grad_out, the d value update
     )
@@ -253,7 +336,7 @@ class DeformSampleLevels(torch.autograd.Function):
             d_value, d_loc, d_w = deform_sample_levels_plain_bwd(value, shapes, locations, weights, grad_out)
         else:
             d_value, d_loc, d_w = _launch_bwd(value, locations, weights, shapes, _level_starts(shapes), True, grad_out)
-        return d_value.to(value.dtype), d_loc.to(locations.dtype), d_w.to(weights.dtype), None
+        return d_value, d_loc.to(locations.dtype), d_w.to(weights.dtype), None
 
 
 class DeformSampleLevel(torch.autograd.Function):
@@ -279,7 +362,7 @@ class DeformSampleLevel(torch.autograd.Function):
         value, loc, aw6 = _one_level(gx, gy, aw, v, h, w)
         d_value, d_loc, d_w = _launch_bwd(value, loc, aw6, [(h, w)], [0], False, grad_out)
         return (d_loc[..., 0].reshape(gx.shape), d_loc[..., 1].reshape(gy.shape), d_w.reshape(aw.shape),
-                d_value.reshape(v.shape).to(v.dtype), None, None)
+                d_value.reshape(v.shape), None, None)
 
 
 def _one_level(gx, gy, aw, v, h, w):

@@ -5,7 +5,9 @@ Replaces `rgbdseg_tpu/ops/kernels/masked_attention.py::masked_cross_attention`
 twin). The forward CUDA kernel (`rgbdseg_torch/csrc/masked_attention.cu`)
 splits the keys: one block per (batch, head, chunk of 64-key tiles) owns every
 query, runs a flash-style online softmax over its tiles (staged with cp.async,
-double-buffered, q.k and p.v as 3xTF32 `mma.sync` on the tensor cores) with the
+double-buffered; q.k and p.v on the tensor cores as 3xTF32 `mma.sync` in
+float32, as bf16 `mma.sync` m16n8k16 with p rounded to bf16 before p.v, where
+the JAX kernel rounds it, in bfloat16) with the
 mask test `m < 0 && !all_blocked` evaluated inside the kernel, and writes
 partial (max, sum, accumulator) rows; a second kernel combines them and writes
 each row's log-sum-exp. The backward (`rgbdseg_torch/csrc/masked_attention_bwd.cu`)

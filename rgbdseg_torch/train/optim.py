@@ -35,8 +35,9 @@ groups), for the checkpoints of `train/checkpoints.py`.
 Under tensor parallelism (`parallel.sharding.shard_model`) the optimizer is
 given the names of the sharded parameters and the model group. The replicated
 parameters' gradients are first averaged over the model group: every rank
-computes them whole, but float atomics (grid_sample's and K1's backward) and
-cuDNN's backward sum in an order that changes from run to run, so on the card
+computes them whole, but float atomics (grid_sample's backward in the
+criterion) and cuDNN's backward sum in an order that changes from run to run
+(K1's backward no longer does: its d value is summed in a fixed order), so on the card
 the ranks' copies part by a last bit, and so would the replicated parameters
 after the update. The global norm then adds the sharded gradients' squares
 over the model group to the replicated ones' (counted once), so every rank

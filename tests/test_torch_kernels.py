@@ -25,6 +25,7 @@ from rgbdseg_torch.ops.kernels.deformable import (
     deform_sample_levels_plain,
     deform_sample_levels_plain_bwd,
 )
+from rgbdseg_torch.ops.kernels import deformable as _deform
 from rgbdseg_torch.ops.kernels import masked_attention as _mca
 from rgbdseg_torch.ops.kernels.masked_attention import (
     masked_cross_attention,
@@ -372,34 +373,169 @@ def _k1_bwd_inputs(geometry, b, hd, nh=8, shapes=LEVELS_480x640):
     return value, loc, weights
 
 
+def _plain_value_cells(gx, gy, h, w):
+    """(point, cell) pairs with a non-zero value weight, as the plain backward
+    computes them: its 16 candidate cells, cw = ty * tx * valid != 0."""
+    from rgbdseg_torch.ops.kernels.deformable import _OFFSETS, _tent_factors
+
+    x0, wx, _ = _tent_factors(gx)
+    y0, wy, _ = _tent_factors(gy)
+    pairs = set()
+    for iy, oy in enumerate(_OFFSETS):
+        for ix, ox in enumerate(_OFFSETS):
+            yi, xi = y0 + oy, x0 + ox
+            valid = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)).float()
+            on = torch.nonzero(wy[iy] * wx[ix] * valid != 0).squeeze(1)
+            pairs.update(zip(on.tolist(), (yi[on] * w + xi[on]).long().tolist()))
+    return pairs
+
+
+@pytest.mark.parametrize("geometry", ["integer", "spread", "edge"])
+def test_deform_bwd_tile_lists_hold_plain_value_cells(geometry):
+    """The K1 backward's bucketing, in its plain version (`tile_lists_plain`,
+    which the card's lists equal: `test_cuda_deform_backward_lists_equal_plain`),
+    against the cells the plain backward adds d value to, at the 480x640 levels
+    and the wrapper's tile plan: every point is listed, once, in each tile that
+    one of its value corners lies in and in no other, the lists ascending, and
+    points with no corner on the map (the "edge" geometry's) in no list."""
+    b, nh = 1, 2
+    _, loc, _ = _k1_bwd_inputs(geometry, b, 16, nh=nh)
+    loc = torch.from_numpy(loc)
+    l = loc.shape[1]
+    tiles = _deform.tile_plan(LEVELS_480x640, l * 4)
+    off_map = 0
+    for h_ in range(nh):
+        for lvl, ((h, w), (th, tw)) in enumerate(zip(LEVELS_480x640, tiles)):
+            xy = loc[0, :, h_, lvl].reshape(-1, 2)
+            gx, gy = xy[:, 0] * w - 0.5, xy[:, 1] * h - 0.5
+            lists = _deform.tile_lists_plain(gx, gy, h, w, (th, tw))
+            assert len(lists) == -(-h // th) * -(-w // tw)
+            assert all(bool((t[1:] > t[:-1]).all()) for t in lists)
+            got = {(p, tile) for tile, t in enumerate(lists) for p in t.tolist()}
+            cells = _plain_value_cells(gx, gy, h, w)
+            ntx = -(-w // tw)
+            assert got == {(p, c // w // th * ntx + c % w // tw) for p, c in cells}
+            off_map += gx.numel() - len({p for p, _ in cells})
+    assert off_map > 0 if geometry == "edge" else True
+
+
+def test_deform_bwd_tile_plan():
+    """The backward's tiles at the 480x640 levels: 2x4, 4x8 and 4x8 cells (40,
+    40 and 150 tiles), so that the in-model lists are of similar length (84,
+    21 and 5.25 points per cell); every plan within the kernel's 32 cells and
+    MAX_TILES tiles; a level that would need more is refused."""
+    assert _deform.tile_plan(LEVELS_480x640, 6300 * 4) == [(2, 4), (4, 8), (4, 8)]
+    for shapes, points in ((((9, 11),), 800), (((150, 200),), 4), (((1, 1), (2, 3), (60, 80)), 10**6)):
+        for (h, w), (th, tw) in zip(shapes, _deform.tile_plan(shapes, points)):
+            assert th * tw <= 32 and -(-h // th) * -(-w // tw) <= _deform.MAX_TILES
+    with pytest.raises(ValueError):
+        _deform.tile_plan(((250, 250),), 4)
+    words, total = _deform.scratch_layout(LEVELS_480x640, [(2, 4), (4, 8), (4, 8)], 16, 6300)
+    assert (words, total) == (788, 16 * (40 + 40 + 150) * 788)
+
+
+def _k1_bwd_twice(fn, inputs, grad_out):
+    """Gradients through the wrappers' autograd, twice; asserts one backward
+    launch each and the same bits in both."""
+    reset_launches()
+    got = _grads(fn, inputs, grad_out)
+    assert LAUNCHES["deformable_bwd"] == 1
+    again = _grads(fn, inputs, grad_out)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [16, 32])
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("geometry", ["model", "random", "integer", "spread", "edge"])
 def test_cuda_deform_backward_matches_plain(geometry, b, hd):
-    """The K1 backward kernel (through the autograd Function) against the plain
+    """The K1 backward kernels (through the autograd Function) against the plain
     backward at the 480x640 levels, within 1e-5 x max |ref| for each of d value,
-    d locations and d weights. d value is summed with float atomics, whose order
-    changes from run to run, so it differs from the plain sum in the last bits
-    only. With bf16 V the same, but
-    d value comes back in bf16: 1e-2 x max |ref| (a bf16 rounding of each side).
-    The per-level entry is checked on integer coordinates."""
+    d locations and d weights: d value is summed in a fixed order (the tiles'
+    lists), another than the plain sum's, so it differs from it in the last
+    bits only; two launches give the same bits in all three. With bf16 V the
+    same, but d value comes back in bf16 from the kernels: 1e-2 x max |ref| (a
+    bf16 rounding of each side). The per-level entry is checked on integer
+    coordinates, f32 and bf16 v, twice too."""
     _need_cuda()
     value, loc, weights = (torch.from_numpy(a).cuda() for a in _k1_bwd_inputs(geometry, b, hd))
     g = torch.randn(b, value.shape[1], 8 * hd, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    starts = [0, 300, 1500]
     for vt, dv_rel in ((value, 1e-5), (value.bfloat16(), 1e-2)):
-        reset_launches()
-        got = _grads(lambda a, b_, c: deform_sample_levels(a, LEVELS_480x640, b_, c), (vt, loc, weights), g)
-        assert LAUNCHES["deformable_bwd"] == 1
+        got = _k1_bwd_twice(lambda a, b_, c: deform_sample_levels(a, LEVELS_480x640, b_, c), (vt, loc, weights), g)
         ref = deform_sample_levels_plain_bwd(vt, LEVELS_480x640, loc, weights, g)
         assert got[0].dtype == vt.dtype
+        assert _deform._launch_bwd(vt, loc, weights, LEVELS_480x640, starts, True, g)[0].dtype == vt.dtype
         _assert_grad_close(got[:1], ref[:1], rel=dv_rel)
         _assert_grad_close(got[1:], ref[1:])
     gx, gy, aw, v = (torch.from_numpy(a).cuda() for a in _tent_integer_coords(hd=hd))
     g1 = torch.randn(gx.shape[0], gx.shape[1], v.shape[-1], device="cuda")
-    got = _grads(lambda a, b_, c, d: deform_sample_level(a, b_, c, d, 9, 11), (gx, gy, aw, v), g1)
-    _assert_grad_close(got, deform_sample_level_plain_bwd(gx, gy, aw, v, 9, 11, g1))
+    for vt, dv_rel in ((v, 1e-5), (v.bfloat16(), 1e-2)):
+        got = _k1_bwd_twice(lambda a, b_, c, d: deform_sample_level(a, b_, c, d, 9, 11), (gx, gy, aw, vt), g1)
+        ref = deform_sample_level_plain_bwd(gx, gy, aw, vt, 9, 11, g1)
+        assert got[3].dtype == vt.dtype
+        _assert_grad_close(got[:3], ref[:3])
+        _assert_grad_close(got[3:], ref[3:], rel=dv_rel)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["model", "spread", "edge"])
+def test_cuda_deform_backward_4_heads_same_bits(geometry):
+    """At 4 heads (one rank's share under model_parallel_size 2), B=2: the K1
+    backward against the plain one, and two launches with the same bits, f32
+    and bf16 V; the per-level entry on one level of it, both dtypes."""
+    _need_cuda()
+    value, loc, weights = (torch.from_numpy(a).cuda() for a in _k1_bwd_inputs(geometry, 2, 32, nh=4))
+    g = torch.randn(2, value.shape[1], 4 * 32, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    for vt, dv_rel in ((value, 1e-5), (value.bfloat16(), 1e-2)):
+        got = _k1_bwd_twice(lambda a, b_, c: deform_sample_levels(a, LEVELS_480x640, b_, c), (vt, loc, weights), g)
+        ref = deform_sample_levels_plain_bwd(vt, LEVELS_480x640, loc, weights, g)
+        assert got[0].dtype == vt.dtype
+        _assert_grad_close(got[:1], ref[:1], rel=dv_rel)
+        _assert_grad_close(got[1:], ref[1:])
+    h, w = LEVELS_480x640[1]
+    v = value[:, 300:1500].permute(0, 2, 1, 3).reshape(8, h * w, 32).contiguous()
+    coords = loc[:, :, :, 1].permute(0, 2, 1, 3, 4).reshape(8, -1, 4, 2)
+    gx, gy = (coords[..., 0] * w - 0.5).contiguous(), (coords[..., 1] * h - 0.5).contiguous()
+    aw = weights[:, :, :, 1].permute(0, 2, 1, 3).reshape(8, -1, 4).contiguous()
+    g1 = torch.randn(8, gx.shape[1], 32, device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+    for vt, dv_rel in ((v, 1e-5), (v.bfloat16(), 1e-2)):
+        got = _k1_bwd_twice(lambda a, b_, c, d: deform_sample_level(a, b_, c, d, h, w), (gx, gy, aw, vt), g1)
+        ref = deform_sample_level_plain_bwd(gx, gy, aw, vt, h, w, g1)
+        _assert_grad_close(got[:3], ref[:3])
+        _assert_grad_close(got[3:], ref[3:], rel=dv_rel)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["model", "integer", "spread", "edge"])
+def test_cuda_deform_backward_lists_equal_plain(geometry):
+    """The K1 backward's bucketing on the card: per (b, head, level) and tile,
+    the bitmap's set bits are exactly the points `tile_lists_plain` lists (in
+    ascending order, as the gather walks them), on a scratch the kernels find
+    full of ones."""
+    _need_cuda()
+    b, nh = 2, 8
+    value, loc, weights = (torch.from_numpy(a).cuda() for a in _k1_bwd_inputs(geometry, b, 32))
+    l = loc.shape[1]
+    g = torch.randn(b, l, nh * 32, device="cuda")
+    tiles = _deform.tile_plan(LEVELS_480x640, l * 4)
+    words, total = _deform.scratch_layout(LEVELS_480x640, tiles, b * nh, l)
+    scratch = torch.full((total,), -1, dtype=torch.int32, device="cuda")  # the kernels must clear it
+    _deform._launch_bwd(value, loc, weights, LEVELS_480x640, [0, 300, 1500], True, g, scratch=scratch)
+    bits = (scratch.cpu().reshape(b * nh, -1, words, 1) >> torch.arange(32, dtype=torch.int32)) & 1
+    loc = loc.cpu()
+    for bh in range(b * nh):
+        first = 0
+        for lvl, ((h, w), tile) in enumerate(zip(LEVELS_480x640, tiles)):
+            xy = loc[bh // nh, :, bh % nh, lvl].reshape(-1, 2)
+            want = _deform.tile_lists_plain(xy[:, 0] * w - 0.5, xy[:, 1] * h - 0.5, h, w, tile)
+            for t, ref in enumerate(want):
+                got = torch.nonzero(bits[bh, first + t].reshape(-1)).squeeze(1)
+                assert torch.equal(got, ref), (bh, lvl, t)
+            first += len(want)
 
 
 @pytest.mark.cuda

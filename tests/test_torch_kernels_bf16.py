@@ -40,6 +40,7 @@ from test_torch_kernels import (
 
 K3_RTOL = 1e-2
 K1_TOL = 2e-2
+K3_TOL_BF16 = 2e-2  # chip_smoke.K3_TOL_BF16: K3 in bf16 against its plain version, absolute
 
 
 @pytest.fixture
@@ -74,6 +75,49 @@ def test_mca_plain_bf16_matches_jax_twin(jx, nk):
                                        torch.from_numpy(m), torch.from_numpy(ab))
     assert out.dtype == torch.bfloat16
     assert _rel_err([out.float().numpy()], [np.asarray(ref.astype(jnp.float32))]) <= K3_RTOL
+
+
+@pytest.mark.parametrize("nk", [300, 1500])
+def test_mca_plain_bf16_matches_jax_pallas_kernel(jx, nk):
+    """The JAX kernel itself (`_mca_pallas`, interpret mode) on bf16 q, k, v:
+    float32 scores of bf16 products, p rounded to bf16 before p v, the
+    rounding point the CUDA kernel's bf16 route copies. The port's plain
+    version rounds p there too, but also the scores (bf16 q k^T, as the jnp
+    twin does): within K3_TOL_BF16, the bound that holds the kernel to the
+    plain version on the card."""
+    _, jnp, _, masked_attention = jx
+    q, k, v, m, ab, _ = _mca_bf16(nk)
+    ref = masked_attention._mca_pallas(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), m, ab, interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    out = masked_cross_attention_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                                       torch.from_numpy(m), torch.from_numpy(ab))
+    err = np.abs(out.float().numpy() - np.asarray(ref.astype(jnp.float32))).max()
+    assert err <= K3_TOL_BF16, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk", [300, 1200, 4800])
+def test_cuda_mca_bf16_forward_matches_plain(nk):
+    """K3's bf16 forward (bf16 mma.sync, p rounded to bf16) against the plain
+    version in bf16 and against the float32 plain version of the same bf16
+    values, which rounds neither the scores nor p: both within K3_TOL_BF16,
+    at the main path's shapes (B=2, 8 heads, 100 queries, hd 32) and at hd
+    16 and 64 with 129 queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention
+    from test_torch_kernels import _mca_edge_inputs
+
+    for nq, hd in ((100, 32), (129, 16), (129, 64)):
+        q, k, v, m, ab = (torch.from_numpy(a).cuda() for a in _mca_edge_inputs(nq, nk, hd))
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        out = masked_cross_attention(qb, kb, vb, m, ab)
+        assert out.dtype == torch.bfloat16
+        for ref in (masked_cross_attention_plain(qb, kb, vb, m, ab),
+                    masked_cross_attention_plain(qb.float(), kb.float(), vb.float(), m, ab)):
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= K3_TOL_BF16, (nq, hd, err)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("nk", [300, 1500])
