@@ -40,13 +40,6 @@ has what it needs (else it says so and is skipped):
 
 Prints one line per shape and a JSON line; needs one CUDA card.
 
-    python3 kernel_ab.py --parent DIR --k1-split [--seed N]
-
-runs, instead, the split of the parent's K1 backward (`k1_split`): its launch
-as it is, without its d value atomics and with its V loads replaced by a
-constant (variants of its source built beside its build), and the d value
-zeroing and bf16 cast alone, at the in-model geometry, B=2, f32 and bf16 V.
-
     python3 kernel_ab.py --parent DIR --parallel [--seed N]
 
 runs, instead, `chip_smoke.py` phase 18 (the parallel phase: two processes
@@ -168,73 +161,6 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
                              **ab(f"K3-bwd K={nk} {dtype} B={cs.TRAIN_B}", old, new)))
     torch.cuda.synchronize()
     return rows
-
-
-# Throwaway variants of the parent's K1 backward for the split (--k1-split):
-# text substitutions on its source, built by hand beside the parent's build.
-K1_SPLIT_VARIANTS = {
-    "no d value atomics": ("atomicAdd(reinterpret_cast<float4*>(dvl + off)",
-                           "if (0) atomicAdd(reinterpret_cast<float4*>(dvl + off)"),
-    "V loads a constant": ("v[k] = ok ? ldg4(vl + off) : make_float4(0.f, 0.f, 0.f, 0.f);",
-                           "v[k] = make_float4(1.f, 1.f, 1.f, 1.f);"),
-}
-
-
-def k1_split(parent: Path, parent_kernels, old_deform, rng) -> dict:
-    """Where the parent's K1 backward spends its time, at the in-model geometry,
-    B=2, float32 and bfloat16 V: its `_launch_bwd` (the d value zeroing and the
-    kernel) as it is and with each of K1_SPLIT_VARIANTS built in place of its
-    kernel, the zeroing alone and the bf16 cast of d value alone (device ms, a
-    replayed CUDA graph), and each build's ptxas line (registers, spills)."""
-    import ctypes
-
-    import torch
-
-    dev = torch.device("cuda")
-    value, loc, weights = cs.k1_inputs(rng, dev, "model", cs.TRAIN_B)
-    g = torch.from_numpy(rng.randn(cs.TRAIN_B, cs.L, cs.NH * cs.HD).astype(np.float32)).to(dev)
-    starts = [sum(h * w for h, w in cs.LEVELS[:i]) for i in range(len(cs.LEVELS))]
-    src = (parent / "rgbdseg_torch" / "csrc" / "deformable_bwd.cu").read_text()
-    out_dir = parent / "build" / "k1_split"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fn_name, argtypes = parent_kernels._SIGNATURES["deformable_bwd"]
-    libs = {"as it is": parent_kernels.load("deformable_bwd")}
-    for i, (label, (old, new)) in enumerate(K1_SPLIT_VARIANTS.items()):
-        if old not in src:
-            raise AssertionError(f"k1 split: '{old}' not in the parent's deformable_bwd.cu")
-        cu = out_dir / f"variant{i}.cu"
-        cu.write_text(src.replace(old, new))
-        so = out_dir / f"libvariant{i}.so"
-        run = subprocess.run([parent_kernels._nvcc(), *parent_kernels.NVCC_FLAGS, "-o", str(so), str(cu)],
-                             capture_output=True, text=True)
-        if run.returncode != 0:
-            raise RuntimeError(f"k1 split: nvcc failed for '{label}':\n{run.stdout}{run.stderr}")
-        for line in parent_kernels.ptxas_report(run.stdout + run.stderr):
-            cs.log(f"k1 split ptxas '{label}': {line}")
-        lib = ctypes.CDLL(str(so))
-        getattr(lib, fn_name).argtypes = argtypes
-        getattr(lib, fn_name).restype = ctypes.c_int
-        libs[label] = lib
-    report = {}
-    try:
-        for vt in (value, value.bfloat16()):
-            dtype = str(vt.dtype).replace("torch.", "")
-            row = {}
-            for label, lib in list(libs.items()) + list(libs.items())[:1]:  # "as it is" first and last
-                parent_kernels._LIBS["deformable_bwd"] = lib
-                ms = cs.time_ms(lambda: old_deform._launch_bwd(vt, loc, weights, cs.LEVELS, starts, True, g))
-                row.setdefault(label, []).append(ms)
-            d32 = torch.zeros(value.shape, dtype=torch.float32, device=dev)
-            row["zeroing alone"] = [cs.time_ms(lambda: torch.zeros(value.shape, dtype=torch.float32, device=dev))]
-            row["bf16 cast alone"] = [cs.time_ms(lambda: d32.to(torch.bfloat16))]
-            for label, ms in row.items():
-                cs.log(f"k1 split {dtype} V, B={cs.TRAIN_B}, in-model: {label}: "
-                       + " / ".join(f"{t:.4f}" for t in ms) + " ms")
-            report[dtype] = row
-    finally:
-        parent_kernels._LIBS["deformable_bwd"] = libs["as it is"]
-    torch.cuda.synchronize()
-    return report
 
 
 def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
@@ -379,8 +305,6 @@ def main(argv=None) -> int:
                     help="timed rounds of old/new/new/old requests, and of train steps")
     ap.add_argument("--kernels-only", action="store_true",
                     help="the trace and the kernel sections only (no requests, no train steps)")
-    ap.add_argument("--k1-split", action="store_true",
-                    help="instead: where the parent's K1 backward spends its time (variants of its kernel)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead: chip_smoke.py phase 18 of the parent and of this tree in turns")
     ap.add_argument("--phase18-of", type=Path, default=None, help=argparse.SUPPRESS)
@@ -404,15 +328,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs.log(f"device: {smi}; parent {args.parent}; TF32 off")
+    build_all()
     old_deform, old_mca, old_predictor = load_parent(args.parent.resolve())
     parent_kernels = importlib.import_module("parent_rgbdseg_torch.ops.kernels")
     parent_kernels.build_all()
-    rng = np.random.RandomState(args.seed)
-    if args.k1_split:
-        print(json.dumps({"device": smi, "k1_split": k1_split(args.parent.resolve(), parent_kernels, old_deform, rng)}))
-        return 0
-    build_all()
     traced = trace(parent_kernels)
+    rng = np.random.RandomState(args.seed)
     rows = []
     if hasattr(old_deform, "deform_sample_levels"):
         rows += forward_ab(old_deform, old_mca, rng)
@@ -529,7 +450,8 @@ def sass_counts(lib: Path) -> dict:
     """{kernel: {"LDL": n, "STL": n, "HMMA.<shape>.<types>": n, "RED.<kind>": n, ...}}
     from `cuobjdump -sass` of a built library: local-memory instructions, the
     tensor-core instructions by kind (TF32 or BF16 operands) and the atomics
-    by kind (RED, REDG, ATOM, ATOMG in device memory, ATOMS in shared memory)."""
+    by kind (RED, REDG, ATOM, ATOMG in device memory, ATOMS in shared memory;
+    not a barrier's BAR.RED)."""
     from rgbdseg_torch.ops.kernels import _demangle
 
     counts, fn = {}, None
@@ -538,7 +460,7 @@ def sass_counts(lib: Path) -> dict:
             fn = ln.split("Function :")[-1].strip()
             counts[fn] = {"LDL": 0, "STL": 0}
         elif fn is not None:
-            m = re.search(r"\b(LDL|STL|HMMA\.[\w.]+|(?:REDG?|ATOM[GS]?)\.[\w.]+)", ln)
+            m = re.search(r"\b(LDL|STL|HMMA\.[\w.]+|(?<!BAR\.)(?:REDG?|ATOM[GS]?)\.[\w.]+)", ln)
             if m:
                 counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
     names = _demangle(list(counts))

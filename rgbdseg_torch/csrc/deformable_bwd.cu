@@ -44,41 +44,54 @@
 //      pair give each its slot); all lanes walk the list, issuing the V loads of
 //      8 cells before using any, and add the dot with grad_out into the partial
 //      d weight and d location of the cell's point; shuffles reduce those over
-//      the pair's lanes, and lane p writes point p's.
-//  (b) The bucketing: d value is summed in destination order. Each level's map
-//      is cut into tiles of th x tw cells (the wrapper's plan, sized per level
-//      so that the tiles' lists are of similar length), and each tile gets a
-//      bitmap over its (b, head, level)'s points: bit i is set where point i
-//      (= query * P + p) has a value corner (one of its <= 2 x 2 cells of
-//      non-zero tent value on the map) in the tile. A warp writes the words of
-//      32 consecutive points: a point's tiles differ in row or column parity,
-//      so per parity slot __match_any_sync gives the lanes that list one tile,
-//      which is that tile's word, stored by the lowest of them. No atomics;
-//      the memset before clears the rest.
-//  (c) The gather kernel, one block per tile. The block lists the tile's
-//      points in shared memory in ascending order (a thread counts 4 bitmap
-//      words, a block scan places them), and warp w takes the w-th eighth of
-//      the list, 32 points at a time: lane j computes point j's corner weights
-//      aw * ty * tx with (a)'s arithmetic, their places in the tile and its
-//      grad_out row; then the warp adds the points one by one into its own
-//      copy of the tile, 8 lanes per corner (4 corners are 4 cells) and hd / 8
-//      channels per lane, 8 grad_out rows (128 bytes each at hd = 32; B=2's
-//      12.9 MB stay in the 50 MB L2) in flight. The copies are summed in warp
-//      order and every cell of the tile is written once: float32, or bfloat16
-//      rounded once from the float32 sum, as the plain backward rounds. The
-//      order of every sum is fixed by the bitmaps, so d value has the same
+//      the pair's lanes, and lane p writes point p's. It also writes, per (b,
+//      head, level, query), a record of the 4 points' pixel coordinates (32
+//      contiguous bytes) and weights (16 bytes in a second array), where loc
+//      and aw keep a query's bytes 768 apart.
+//  (b) The bucketing: each level's map is cut into tiles of th x tw cells (the
+//      wrapper's plan; powers of two), and each tile has a bitmap over its (b,
+//      head)'s queries: bit q is set where one of query q's points has a value
+//      corner (one of its <= 2 x 2 cells of non-zero tent value on the map) in
+//      the tile. One warp per bitmap word, 32 consecutive queries: a point's
+//      value corners lie in at most 2 x 2 neighbouring tiles, whose row and
+//      column parities all differ, so per parity slot the warp takes the tiles
+//      its lanes list one at a time, and a ballot is that tile's word, stored
+//      by one lane. No atomics; the memset before clears the rest.
+//  (c) The gather: d value in destination order. A block of 8 warps takes 8 / k
+//      neighbouring tiles of one level, k warps per tile (the wrapper's plan:
+//      the coarse levels' tiles list many more queries, and get more warps).
+//      The warps of a tile list its marked queries in shared memory in
+//      ascending order (a block scan over the bitmap's words) and split the
+//      list in k equal parts. A warp takes its part 32 queries at a time: their
+//      grad_out rows G (32 x hd; B=2's 12.9 MB stay in the 50 MB L2) are
+//      copied to shared memory by cp.async while lane j sums query j's corner
+//      weights aw * ty * tx (the pair kernel's tents, from the records) into
+//      column j of W (the tile's cells x 32 queries); then the warp adds W G to
+//      its copy of the tile in registers, on the tensor cores: mma.sync
+//      m16n8k8 on 3xTF32 splits, float32-accurate (a half of W that is zero
+//      over 8 queries is skipped). The tile's k copies are summed in warp order
+//      and every cell is written once: float32, or bfloat16 rounded once from
+//      the float32 sum, as the plain backward rounds. Every sum has an order
+//      fixed by the bitmaps and the products' shapes, so d value has the same
 //      bits on every run.
-// Shared-memory windows per level with int32 fixed-point atomics in the pair
-// kernel were tried before and measured slower than the float atomics they
-// replaced; this design removes the atomics altogether (the scatter is
-// inverted into a gather).
+// (b) and (c) take the (b, head)s in the reverse of (a)'s order, so that the
+// records and grad_out rows they read first are the ones (a) left in L2 last.
+// The float atomics this replaces took 0.069 of PR 13's 0.2031 ms at the
+// in-model geometry, B=2, on the H100; a gather that added each point's
+// corners into shared memory one by one was a chain of dependent
+// shared-memory accesses and took 0.16 ms. One grad_out row per (query, tile),
+// not per (point, tile), and products of 32 queries at a time, keep it short.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 
 namespace {
+
+using namespace rgbd;
 
 constexpr int kMaxLevels = 3;
 constexpr int kThreads = 256;
@@ -86,9 +99,10 @@ constexpr int kMaxEntries = 36;  // cells of non-zero tent value or slope: at mo
 constexpr int kBatch = 8;        // V loads in flight per lane
 constexpr int kPoints = 4;       // P
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTiles = 1536;     // tiles per level (bounds the bitmaps)
-constexpr int kMaxTileCells = 32;   // cells per tile: the gather's 8 copies fill 32 KB at hd 32
-constexpr int kGather = 8;          // grad_out rows in flight per gather warp
+constexpr int kListCap = 2048;   // queries a gather block lists in shared memory at a time
+constexpr int kCells = 32;       // cells per tile at most: the gather's products are 32 cells tall
+constexpr int kRec = 3 * 4;      // floats per (b, head, level, query) record: 4 points' (x, y), then their weights
+constexpr int kScanRounds = 8;   // bitmap words per thread that a gather block's list scan loads at once
 
 struct Levels {
   int h[kMaxLevels];
@@ -96,7 +110,9 @@ struct Levels {
   int start[kMaxLevels];
   int th[kMaxLevels];               // tile rows and columns
   int tw[kMaxLevels];
+  int wpt[kMaxLevels];              // gather warps per tile: 1, 2, 4 or 8
   int tile0[kMaxLevels + 1];        // the level's first tile over all levels
+  int blk0[kMaxLevels + 1];         // the level's first gather block
 };
 
 // One level's fields. The kernels whose level is known only at run time read
@@ -104,16 +120,19 @@ struct Levels {
 // array index into a kernel parameter would make every thread copy the table
 // to local memory first.
 struct Level {
-  int h, w, start, th, tw, tile0;
-  __device__ __forceinline__ int tiles_x() const { return (w + tw - 1) / tw; }
-  __device__ __forceinline__ int tiles_y() const { return (h + th - 1) / th; }
+  int h, w, start, th, tw, wpt, tile0, blk0;
+  // Tile rows and columns are powers of two: the tile of a cell is a shift.
+  __device__ __forceinline__ int tile_y(int y) const { return y >> (__ffs(th) - 1); }
+  __device__ __forceinline__ int tile_x(int x) const { return x >> (__ffs(tw) - 1); }
+  __device__ __forceinline__ int tiles_x() const { return tile_x(w + tw - 1); }
+  __device__ __forceinline__ int tiles_y() const { return tile_y(h + th - 1); }
 };
 
 __device__ __forceinline__ Level level(const Levels& lv, int lvl) {
-  Level l = {lv.h[0], lv.w[0], lv.start[0], lv.th[0], lv.tw[0], lv.tile0[0]};
+  Level l = {lv.h[0], lv.w[0], lv.start[0], lv.th[0], lv.tw[0], lv.wpt[0], lv.tile0[0], lv.blk0[0]};
 #pragma unroll
   for (int i = 1; i < kMaxLevels; ++i)
-    if (lvl == i) l = {lv.h[i], lv.w[i], lv.start[i], lv.th[i], lv.tw[i], lv.tile0[i]};
+    if (lvl == i) l = {lv.h[i], lv.w[i], lv.start[i], lv.th[i], lv.tw[i], lv.wpt[i], lv.tile0[i], lv.blk0[i]};
   return l;
 }
 
@@ -140,8 +159,6 @@ __device__ __forceinline__ float4 widen(uint2 u) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // The tent max(0, 1 - |g - i|) at cell i and its slope in g, as JAX differentiates it.
 __device__ __forceinline__ void tent(float g, float i, float& value, float& slope) {
@@ -193,11 +210,31 @@ __device__ __forceinline__ bool corner_on(const Corners& c, int k, int hh, int w
   return c.inside && yy >= 0 && yy < hh && xx >= 0 && xx < ww && c.wy[k >> 1] * c.wx[k & 1] != 0.f;
 }
 
+// A point's tiles by parity class. A point's value corners lie in at most 2 x 2
+// neighbouring tiles, whose (row, column) parities all differ, so slot
+// (ty & 1) * 2 + (tx & 1) holds the tile it lists there (-1 for none): a tile
+// takes the same slot for every point that lists it.
+__device__ __forceinline__ void point_tiles(float2 g, const Level& L, int (&t)[4]) {
+  const Corners c = value_corners(g, L.h, L.w);
+  const int ntx = L.tiles_x();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) t[s] = -1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ty = L.tile_y(c.y0 + (k >> 1));
+    const int tx = L.tile_x(c.x0 + (k & 1));
+    const bool on = corner_on(c, k, L.h, L.w);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (on && ((ty & 1) * 2 + (tx & 1)) == s) t[s] = ty * ntx + tx;
+  }
+}
+
 template <typename T, int HD, int NL, int P>
 __global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2) deform_sample_bwd_kernel(
     const T* __restrict__ value, const float* __restrict__ loc, const float* __restrict__ aw,
-    const float* __restrict__ grad_out, float* __restrict__ d_loc, float* __restrict__ d_aw, Levels lv,
-    long long pairs, int nh, int nq, int ltot, int normalized) {
+    const float* __restrict__ grad_out, float* __restrict__ d_loc, float* __restrict__ d_aw,
+    float* __restrict__ rec, Levels lv, long long pairs, int nh, int nq, int ltot, int normalized) {
   constexpr int kLanes = HD / 4;              // lanes per (query, head) pair
   constexpr int kPairs = kThreads / kLanes;   // pairs per block
   constexpr int kLanesPerPoint = kLanes / P;  // lanes that list one point's candidate cells
@@ -243,6 +280,11 @@ __global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2) deform_sample_bwd_
     const float2 xy = pixel_xy(__ldg(reinterpret_cast<const float2*>(loc) + pt0 + p_own), hh, ww, normalized);
     const float a_own = __ldg(aw + pt0 + p_own);
     const float x = xy.x, y = xy.y;
+    if (live && sub % kLanesPerPoint == 0) {  // the point's record for the bucketing and the gather
+      const long long r = (bh * NL + lvl) * nq + l;
+      reinterpret_cast<float2*>(rec)[r * kPoints + p_own] = xy;
+      rec[r * kPoints + p_own + (long long)pairs * NL * kPoints * 2] = a_own;
+    }
     const float x0f = floorf(x);
     const float y0f = floorf(y);
     // Cells floor - 1 .. floor + 2 can matter, so x0 from -2 to w; false for NaN.
@@ -332,294 +374,369 @@ __global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2) deform_sample_bwd_
   }
 }
 
-// A point's tiles by parity class. A point's value corners lie in at most 2 x 2
-// neighbouring tiles, whose (row, column) parities all differ, so slot
-// (ty & 1) * 2 + (tx & 1) holds the tile it lists there (-1 for none): a tile
-// takes the same slot for every point that lists it.
-__device__ __forceinline__ void point_tiles(float2 g, const Level& L, int (&t)[4]) {
-  const Corners c = value_corners(g, L.h, L.w);
-  const int ntx = L.tiles_x();
-#pragma unroll
-  for (int s = 0; s < 4; ++s) t[s] = -1;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int ty = (c.y0 + (k >> 1)) / L.th;
-    const int tx = (c.x0 + (k & 1)) / L.tw;
-    const bool on = corner_on(c, k, L.h, L.w);
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-      if (on && ((ty & 1) * 2 + (tx & 1)) == s) t[s] = ty * ntx + tx;
-  }
+
+// The (b, head, level, query) records: its 4 points' pixel coordinates (32
+// bytes in one array) and weights (16 bytes in a second one, `n` records on).
+__device__ __forceinline__ void load_xy(const float* rec, long long r, float2 (&xy)[kPoints]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(rec) + 2 * r);
+  const float4 v = __ldg(reinterpret_cast<const float4*>(rec) + 2 * r + 1);
+  xy[0] = make_float2(u.x, u.y);
+  xy[1] = make_float2(u.z, u.w);
+  xy[2] = make_float2(v.x, v.y);
+  xy[3] = make_float2(v.z, v.w);
+}
+__device__ __forceinline__ void load_aw(const float* rec, long long r, long long n, float (&a)[kPoints]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(rec + n * kPoints * 2) + r);
+  a[0] = u.x;
+  a[1] = u.y;
+  a[2] = u.z;
+  a[3] = u.w;
 }
 
-// (b) The bucketing: per (b, head) and tile over all levels, a bitmap over the
-// segment's points (bit i % 32 of word i / 32: point i lists the tile). A warp
-// takes one word, 32 consecutive points; per parity slot, __match_any_sync
-// gives the lanes that list the same tile, which is that tile's word, and the
-// lowest of them stores it. Every word is written by one lane at most (the
-// rest stay as the memset left them): no atomics, the same bits on every run.
-// Grid (word groups, segments), segment = (b * nh + h) * nl + lvl.
-__global__ void __launch_bounds__(kThreads) mark_kernel(const float* __restrict__ loc, Levels lv, int nl, int nq,
-                                                        int nh, int normalized, int words,
-                                                        unsigned* __restrict__ bitmap) {
-  const long long seg = blockIdx.y;
-  const int lvl = (int)(seg % nl);
-  const Level L = level(lv, lvl);
-  const long long bh = seg / nl;
+// (b) The bucketing: one warp per bitmap word, 32 consecutive queries of one
+// (b, head, level); lane j lists query j's points' tiles by parity slot. Per
+// slot, while a lane has a tile left, the warp takes the first lane's, a
+// ballot over the lanes that list it is that tile's word, and lane 0 stores
+// it. Every word is written by one warp at most (the memset before clears the
+// rest): no atomics, the same bits on every run. Grid (word groups, levels,
+// b * nh).
+__global__ void __launch_bounds__(kThreads) mark_kernel(const float* __restrict__ rec, Levels lv, int nl, int nq,
+                                                        int words, unsigned* __restrict__ bitmap) {
   const int word = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (word >= words) return;
+  const int lvl = blockIdx.y;
+  const Level L = level(lv, lvl);
+  const long long bh = gridDim.z - 1 - blockIdx.z;  // the last-written records first: they are in L2
   const int lane = threadIdx.x & 31;
-  const int i = word * 32 + lane;
-  float2 g = make_float2(__int_as_float(0x7fc00000), 0.f);  // NaN: no corner, past the last point
-  if (i < nq * kPoints) {
-    const long long pt = ((((bh / nh) * nq + i / kPoints) * nh + bh % nh) * nl + lvl) * kPoints + i % kPoints;
-    g = pixel_xy(__ldg(reinterpret_cast<const float2*>(loc) + pt), L.h, L.w, normalized);
+  const int q = word * 32 + lane;
+  int t[kPoints][4];
+#pragma unroll
+  for (int p = 0; p < kPoints; ++p)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) t[p][s] = -1;
+  if (q < nq) {
+    float2 xy[kPoints];
+    load_xy(rec, (bh * nl + lvl) * nq + q, xy);
+#pragma unroll
+    for (int p = 0; p < kPoints; ++p) point_tiles(xy[p], L, t[p]);
   }
-  int t[4];
-  point_tiles(g, L, t);
   unsigned* bm = bitmap + (bh * lv.tile0[kMaxLevels] + L.tile0) * words + word;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    const unsigned m = __match_any_sync(0xffffffffu, t[s]);
-    if (t[s] >= 0 && lane == __ffs(m) - 1) bm[(long long)t[s] * words] = m;
+    int c0 = t[0][s], c1 = t[1][s], c2 = t[2][s], c3 = t[3][s];
+    for (;;) {
+      const int first = c0 >= 0 ? c0 : c1 >= 0 ? c1 : c2 >= 0 ? c2 : c3;
+      const unsigned any = __ballot_sync(0xffffffffu, first >= 0);
+      if (any == 0u) break;
+      const int tile = __shfl_sync(0xffffffffu, first, __ffs(any) - 1);
+      const unsigned bits = __ballot_sync(0xffffffffu, c0 == tile || c1 == tile || c2 == tile || c3 == tile);
+      c0 = c0 == tile ? -1 : c0;
+      c1 = c1 == tile ? -1 : c1;
+      c2 = c2 == tile ? -1 : c2;
+      c3 = c3 == tile ? -1 : c3;
+      if (lane == 0) bm[(long long)tile * words] = bits;
+    }
   }
 }
 
-// d += cv * g on a lane's hd / 8 channels (float4 at hd 32, float2 at hd 16).
-template <int N>
-struct Vec;
-template <>
-struct Vec<4> {
-  using type = float4;
-  __device__ static __forceinline__ void axpy(float* d, float cv, float4 g) {
-    float4 a = *reinterpret_cast<float4*>(d);
-    a.x = fmaf(cv, g.x, a.x);
-    a.y = fmaf(cv, g.y, a.y);
-    a.z = fmaf(cv, g.z, a.z);
-    a.w = fmaf(cv, g.w, a.w);
-    *reinterpret_cast<float4*>(d) = a;
-  }
-};
-template <>
-struct Vec<2> {
-  using type = float2;
-  __device__ static __forceinline__ void axpy(float* d, float cv, float2 g) {
-    float2 a = *reinterpret_cast<float2*>(d);
-    a.x = fmaf(cv, g.x, a.x);
-    a.y = fmaf(cv, g.y, a.y);
-    *reinterpret_cast<float2*>(d) = a;
-  }
+__device__ __forceinline__ void store2(float* p, float x, float y) { *reinterpret_cast<float2*>(p) = make_float2(x, y); }
+__device__ __forceinline__ void store4(float* p, float4 s) { *reinterpret_cast<float4*>(p) = s; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 s) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y), hi = __floats2bfloat162_rn(s.z, s.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// The gather's shared memory per warp: 32 staged grad_out rows (hd + 8 floats
+// apart, so that a B fragment's loads hit 32 banks) and the weights (kCells x
+// 32 queries, 36 floats apart); the warp's copy of its tile (cells x hd) takes
+// the rows' place at the end. Per block: the tiles' lists and the scan's sums.
+template <int HD>
+struct GatherSmem {
+  static constexpr int kGS = HD + 8;
+  static constexpr int kWS = 36;
+  static constexpr int kWarpFloats = 32 * kGS + kCells * kWS;
+  static constexpr size_t bytes() { return (size_t)kWarps * kWarpFloats * 4 + (size_t)(kListCap + kScanRounds * kWarps) * 4; }
 };
 
-constexpr int kWindow = 4 * kThreads;  // bitmap words a gather block counts at a time
-constexpr int kListCap = 2048;         // points a gather block lists in shared memory at a time
-
-// (c) One block per tile (blockIdx.x over all levels' tiles, blockIdx.y = b * nh + h).
-// The block lists the tile's points in shared memory, in ascending order (each
-// thread counts 4 bitmap words, a block scan gives each its place), and warp w
-// takes the w-th eighth of the list, 32 points at a time: lane j computes point
-// j's grad_out row, its corners' places in the tile and their weights aw * ty *
-// tx with (a)'s arithmetic; then the warp adds the points one by one into its
-// own copy of the tile, 8 lanes per corner (the 4 corners are 4 cells, so they
-// never collide) and hd / 8 channels per lane, 8 grad_out rows in flight.
+// (c) The gather: one block per 8 / k tiles of one level, k = the level's warps
+// per tile (blockIdx.x over all levels' blocks, blockIdx.y = b * nh + h). Per
+// 32 listed queries a warp stages their grad_out rows G (32 x hd) by cp.async,
+// lane j sums query j's corner weights aw * ty * tx into column j of W (cells
+// x 32), and the warp adds W G to its tile in registers: mma.sync m16n8k8 on
+// 3xTF32 splits, float32-accurate, in a fixed order.
 template <typename T, int HD, int NL>
-__global__ void __launch_bounds__(kThreads, 3) gather_dv_kernel(
-    const float* __restrict__ loc, const float* __restrict__ aw, const float* __restrict__ grad_out,
-    T* __restrict__ d_value, const unsigned* __restrict__ bitmap, Levels lv, int nq, int nh, int ltot,
-    int normalized, int words) {
-  constexpr int kCpl = HD / 8;  // channels per lane
-  using V = Vec<kCpl>;
-  extern __shared__ __align__(16) float acc[];  // [warp][cell][hd]: the warps' copies of the tile
-  __shared__ int list[kListCap];
-  __shared__ int warp_sums[kWarps];
-  __shared__ int meta_row[kWarps][32];    // a batch's grad_out rows, as offsets from query 0's
-  __shared__ int2 meta_c[kWarps][32][4];  // and per corner (offset in the copy or -1, weight bits)
+__global__ void __launch_bounds__(kThreads, 2) gather_dv_kernel(
+    const float* __restrict__ rec, const float* __restrict__ grad_out, T* __restrict__ d_value,
+    const unsigned* __restrict__ bitmap, Levels lv, int nq, int nh, int ltot, int words) {
+  using S = GatherSmem<HD>;
+  constexpr int kChunks = HD / 4;  // 16-byte chunks per grad_out row
+  constexpr int kN = HD / 8;       // n8 tiles over hd
+  extern __shared__ __align__(16) float smem[];
   int lvl = 0;
 #pragma unroll
-  for (int j = 1; j < NL; ++j) lvl += (int)blockIdx.x >= lv.tile0[j];
+  for (int j = 1; j < NL; ++j) lvl += (int)blockIdx.x >= lv.blk0[j];
   const Level L = level(lv, lvl);
-  const int tile = (int)blockIdx.x - L.tile0;
-  const long long bh = blockIdx.y;
-  const int h = (int)(bh % nh);
-  const long long b = bh / nh;
-  const int ntx = L.tiles_x();
-  const int ty0 = tile / ntx * L.th, tx0 = tile % ntx * L.tw;
-  const int cells = L.th * L.tw;
+  const int wpt = L.wpt;
+  const int tpb = kWarps / wpt;  // tiles per block
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int corner = lane >> 3;
-  for (int i = threadIdx.x; i < kWarps * cells * HD; i += kThreads) acc[i] = 0.f;
-  float* mine = acc + (size_t)warp * cells * HD + (lane & 7) * kCpl;
-  const unsigned* bm = bitmap + (bh * lv.tile0[NL] + blockIdx.x) * words;
-  const float* gbase = grad_out + (b * nq * nh + h) * HD + (lane & 7) * kCpl;  // query 0's row, this lane's channels
-  const float2* loc2 = reinterpret_cast<const float2*>(loc);
-  const long long pr0 = b * nq * nh + h;
+  const int g8 = lane >> 2, t4 = lane & 3;  // fragment coordinates
+  const int slot = warp / wpt;   // this warp's tile among the block's
+  const int part = warp % wpt;   // and its part of that tile's list
+  const int ntx = L.tiles_x();
+  const int ntiles = ntx * L.tiles_y();
+  const int tile = ((int)blockIdx.x - L.blk0) * tpb + slot;
+  const bool has_tile = tile < ntiles;
+  const int ty0 = tile / ntx * L.th, tx0 = tile % ntx * L.tw;
+  const int cells = L.th * L.tw;
+  const long long bh = gridDim.y - 1 - blockIdx.y;  // as the bucketing: the last-written records first
+  const int h = (int)(bh % nh);
+  const long long b = bh / nh;
 
-  for (int w0 = 0; w0 < words; w0 += kWindow) {
-    unsigned wd[4];
-    int cnt = 0;
+  float* G = smem + (size_t)warp * S::kWarpFloats;
+  float* W = G + 32 * S::kGS;
+  int* lists = reinterpret_cast<int*>(smem + (size_t)kWarps * S::kWarpFloats);
+  int* warp_sums = lists + kListCap;
+  const int cap = kListCap / tpb;
+  int* list = lists + slot * cap;
+  const unsigned* bm = bitmap + (bh * lv.tile0[NL] + L.tile0 + (has_tile ? tile : 0)) * words;
+  const float* grow = grad_out + (b * nq * nh + h) * HD;  // query 0's row
+  const long long rec0 = (bh * NL + lvl) * nq;  // the records of query 0
+  const long long nrec = (long long)gridDim.y * NL * nq;
+  const int gt = part * 32 + lane;  // the thread's place among its tile's
+  const int rounds = (words + wpt * 32 - 1) / (wpt * 32);
+  float acc[2][kN][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = w0 + threadIdx.x * 4 + r;
-      wd[r] = i < words ? __ldg(bm + i) : 0u;
-      cnt += __popc(wd[r]);
-    }
-    int x = cnt;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    int before = 0, total = 0;
+    for (int ni = 0; ni < kN; ++ni)
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int s = warp_sums[w];
-      before += w < warp ? s : 0;
-      total += s;
-    }
-    before += x - cnt;
-    for (int c0 = 0; c0 < total; c0 += kListCap) {
-      int k = before;  // this thread's points, with their places in the list
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  for (int c0 = 0;; c0 += cap) {
+    // The tile's list: queries of rank c0 .. c0 + cap - 1 in ascending order.
+    // The tile's threads take its bitmap's words in turn, kScanRounds each at
+    // a time: every word's count, its place by a scan, then its queries.
+    int total = 0;
+    for (int r0 = 0; r0 < rounds; r0 += kScanRounds) {
+      unsigned wd[kScanRounds];
+      int x[kScanRounds];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < kScanRounds; ++r) {
+        const int wi = (r0 + r) * wpt * 32 + gt;
+        wd[r] = has_tile && r0 + r < rounds && wi < words ? __ldg(bm + wi) : 0u;
+      }
+#pragma unroll
+      for (int r = 0; r < kScanRounds; ++r) {
+        if (r0 + r >= rounds) break;
+        x[r] = __popc(wd[r]);
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x[r], o);
+          if (lane >= o) x[r] += y;
+        }
+        if (lane == 31) warp_sums[r * kWarps + warp] = x[r];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kScanRounds; ++r) {
+        if (r0 + r >= rounds) break;
+        int before = 0, tot = 0;
+        for (int w = slot * wpt; w < (slot + 1) * wpt; ++w) {
+          const int s = warp_sums[r * kWarps + w];
+          before += w < warp ? s : 0;
+          tot += s;
+        }
         unsigned m = wd[r];
-        const int base = (w0 + threadIdx.x * 4 + r) * 32;
+        int k = total + before + x[r] - __popc(m);
+        const int base = ((r0 + r) * wpt * 32 + gt) * 32;
         while (m != 0u) {
           const int bit = __ffs(m) - 1;
           m &= m - 1u;
-          if (k >= c0 && k < c0 + kListCap) list[k - c0] = base + bit;
+          if (k >= c0 && k < c0 + cap) list[k - c0] = base + bit;
           ++k;
         }
+        total += tot;
       }
-      __syncthreads();
-      const int n = min(kListCap, total - c0);
-      const int e1 = n * (warp + 1) / kWarps;
-      for (int e0 = n * warp / kWarps; e0 < e1; e0 += 32) {
-        int row = 0;
-        int2 c4[4] = {make_int2(-1, 0), make_int2(-1, 0), make_int2(-1, 0), make_int2(-1, 0)};
-        if (e0 + lane < e1) {
-          const int i = list[e0 + lane];
-          const int q = i / kPoints;
-          const long long pt = ((pr0 + (long long)q * nh) * NL + lvl) * kPoints + i % kPoints;
-          const Corners cr = value_corners(pixel_xy(__ldg(loc2 + pt), L.h, L.w, normalized), L.h, L.w);
-          const float a = __ldg(aw + pt);
-          row = q * nh * HD;
+      __syncthreads();  // warp_sums are read before the next words' are written, the list before it is used
+    }
+
+    // This warp's part of the list, 32 queries at a time.
+    const int n = min(cap, total - c0);
+    const int e1 = n > 0 ? n * (part + 1) / wpt : 0;
+    for (int e0 = n > 0 ? n * part / wpt : 0; e0 < e1; e0 += 32) {
+      const int cnt = min(32, e1 - e0);
+      const int q = lane < cnt ? list[e0 + lane] : 0;
+#pragma unroll
+      for (int k = 0; k < kChunks; ++k) {  // row r = (32k + lane) / kChunks, zero past the last query
+        const int i = k * 32 + lane;
+        const int r = i / kChunks;
+        const int qr = __shfl_sync(0xffffffffu, q, r);
+        cp_async16(G + r * S::kGS + (i % kChunks) * 4, grow + (long long)qr * nh * HD + (i % kChunks) * 4, r < cnt);
+      }
+      cp_async_commit();
+      float2 xy[kPoints];
+      float a[kPoints];
+      if (lane < cnt) {
+        load_xy(rec, rec0 + q, xy);
+        load_aw(rec, rec0 + q, nrec, a);
+      }
+      for (int i = lane; i < kCells * S::kWS / 4; i += 32)
+        reinterpret_cast<float4*>(W)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();
+      int halves = 0;  // which 16-cell halves of W's column are not zero
+      if (lane < cnt) {  // column lane of W: the query's corner weights on the tile's cells, point by point
+#pragma unroll
+        for (int p = 0; p < kPoints; ++p) {  // a point's 4 corners are 4 cells: their loads go first
+          const Corners cr = value_corners(xy[p], L.h, L.w);
+          int off[4];
+          float v[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int yy = cr.y0 + (c >> 1) - ty0;
             const int xx = cr.x0 + (c & 1) - tx0;
-            if (corner_on(cr, c, L.h, L.w) && yy >= 0 && yy < L.th && xx >= 0 && xx < L.tw)
-              c4[c] = make_int2((yy * L.tw + xx) * HD, __float_as_int(a * (cr.wy[c >> 1] * cr.wx[c & 1])));
-          }
-        }
-        meta_row[warp][lane] = row;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) meta_c[warp][lane][c] = c4[c];
-        __syncwarp();
-        const int m = min(32, e1 - e0);
-        for (int j0 = 0; j0 < m; j0 += kGather) {
-          typename V::type gv[kGather];
-          int2 cw[kGather];
-#pragma unroll
-          for (int kk = 0; kk < kGather; ++kk) {
-            const int j = min(j0 + kk, 31);
-            cw[kk] = j0 + kk < m ? meta_c[warp][j][corner] : make_int2(-1, 0);
-            gv[kk] = __ldg(reinterpret_cast<const typename V::type*>(gbase + meta_row[warp][j]));
+            const bool on = corner_on(cr, c, L.h, L.w) && yy >= 0 && yy < L.th && xx >= 0 && xx < L.tw;
+            off[c] = on ? (yy * L.tw + xx) * S::kWS + lane : -1;
+            v[c] = on ? W[off[c]] : 0.f;
+            halves |= on ? 1 << ((yy * L.tw + xx) >> 4) : 0;
           }
 #pragma unroll
-          for (int kk = 0; kk < kGather; ++kk)
-            if (cw[kk].x >= 0) V::axpy(mine + cw[kk].x, __int_as_float(cw[kk].y), gv[kk]);
+          for (int c = 0; c < 4; ++c)
+            if (off[c] >= 0) W[off[c]] = v[c] + a[p] * (cr.wy[c >> 1] * cr.wx[c & 1]);
         }
-        __syncwarp();  // the batch is read before the next one is written
       }
-      __syncthreads();  // the list is read before it is written again
+      const unsigned used[2] = {__ballot_sync(0xffffffffu, halves & 1), __ballot_sync(0xffffffffu, halves & 2)};
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      // acc += W G, 8 queries per step; a half of W that is zero over the 8 adds nothing.
+      for (int k0 = 0; k0 < cnt; k0 += 8) {
+        BFrag bf[kN];
+#pragma unroll
+        for (int ni = 0; ni < kN; ++ni) {
+          const float* gp = G + (k0 + t4) * S::kGS + ni * 8 + g8;
+          bf[ni] = split_b(gp[0], gp[4 * S::kGS]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (((used[mi] >> k0) & 0xffu) == 0u) continue;
+          uint32_t ahi[4], alo[4];
+          const float* w = W + (mi * 16 + g8) * S::kWS + k0 + t4;
+          const float av[4] = {w[0], w[8 * S::kWS], w[4], w[8 * S::kWS + 4]};
+          split_tf32_alu(av, ahi, alo);
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int ni = 0; ni < kN; ++ni) mma_pass(pass, acc[mi][ni], ahi, alo, bf[ni]);
+        }
+      }
+      __syncwarp();  // G and W are read before the next 32 queries' are written
     }
-    __syncthreads();  // warp_sums are read before the next window writes them
+    if (!__syncthreads_or(has_tile && part == 0 && total > c0 + cap)) break;
   }
 
-  // The warps' copies summed in warp order; each cell of the tile on the map written once.
+  // The warp's copy of its tile (cells x hd) in G's place; the tile's copies
+  // summed in warp order, each of its cells on the map written once.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kN; ++ni) {
+      const int cell = mi * 16 + g8, ch = ni * 8 + 2 * t4;
+      if (cell < cells) store2(G + cell * HD + ch, acc[mi][ni][0], acc[mi][ni][1]);
+      if (cell + 8 < cells) store2(G + (cell + 8) * HD + ch, acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  __syncthreads();
   const long long pix = (long long)nh * HD;
   T* dv = d_value + (b * ltot + L.start) * pix + (long long)h * HD;
-  for (int i = threadIdx.x; i < cells * HD; i += kThreads) {
-    const int cell = i / HD;
-    const int yy = ty0 + cell / L.tw, xx = tx0 + cell % L.tw;
-    if (yy >= L.h || xx >= L.w) continue;
-    float s = acc[i];
-#pragma unroll
-    for (int j = 1; j < kWarps; ++j) s += acc[(size_t)j * cells * HD + i];
-    store(dv + (long long)(yy * L.w + xx) * pix + i % HD, s);
+  for (int t = 0; t < tpb; ++t) {
+    const int tl = ((int)blockIdx.x - L.blk0) * tpb + t;
+    if (tl >= ntiles) break;
+    const int y0 = tl / ntx * L.th, x0 = tl % ntx * L.tw;
+    const float4* c4 = reinterpret_cast<const float4*>(smem + (size_t)t * wpt * S::kWarpFloats);
+    for (int r = threadIdx.x; r < cells * HD / 4; r += kThreads) {
+      const int cell = r / (HD / 4);
+      const int yy = y0 + (cell >> (__ffs(L.tw) - 1)), xx = x0 + (cell & (L.tw - 1));
+      if (yy >= L.h || xx >= L.w) continue;
+      float4 s = c4[r];
+      for (int j = 1; j < wpt; ++j) {
+        const float4 u = c4[(size_t)j * S::kWarpFloats / 4 + r];
+        s.x += u.x;
+        s.y += u.y;
+        s.z += u.z;
+        s.w += u.w;
+      }
+      store4(dv + (long long)(yy * L.w + xx) * pix + (r % (HD / 4)) * 4, s);
+    }
   }
 }
 
 template <typename T, int HD, int NL>
 int launch_levels(const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value,
-                  void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv, int words,
-                  int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
+                  void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, float* rec, const Levels& lv,
+                  int words, int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
   constexpr int kPairs = kThreads / (HD / 4);
   const long long pairs = (long long)b * nq * nh;
-  int max_cells = 0;
-  for (int i = 0; i < NL; ++i) max_cells = lv.th[i] * lv.tw[i] > max_cells ? lv.th[i] * lv.tw[i] : max_cells;
-  const size_t gather_smem = (size_t)kWarps * max_cells * HD * sizeof(float);  // the warps' copies of the tile
-  static bool attr_set = false;  // the copies and the static lists pass the default 48 KB
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(gather_dv_kernel<T, HD, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)((size_t)kWarps * kMaxTileCells * HD * sizeof(float)));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  deform_sample_bwd_kernel<T, HD, NL, kPoints><<<(unsigned)((pairs + kPairs - 1) / kPairs), kThreads, 0, s>>>(
-      (const T*)value, (const float*)loc, (const float*)aw, (const float*)grad_out, (float*)d_loc, (float*)d_aw, lv,
-      pairs, nh, nq, ltot, normalized);
-  cudaError_t e = cudaMemsetAsync(bitmap, 0, (size_t)bitmap_words * sizeof(unsigned), s);
+  const size_t smem = GatherSmem<HD>::bytes();
+  // Set on every call: the attributes belong to the current device. All of
+  // the SM's shared memory for the gather, so that two blocks fit.
+  cudaError_t e = cudaFuncSetAttribute(gather_dv_kernel<T, HD, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gather_dv_kernel<T, HD, NL>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  mark_kernel<<<dim3((unsigned)((words + kWarps - 1) / kWarps), (unsigned)((long long)b * nh * NL)), kThreads, 0, s>>>(
-      (const float*)loc, lv, NL, nq, nh, normalized, words, bitmap);
-  gather_dv_kernel<T, HD, NL><<<dim3((unsigned)lv.tile0[NL], (unsigned)(b * nh)), kThreads, gather_smem, s>>>(
-      (const float*)loc, (const float*)aw, (const float*)grad_out, (T*)d_value, bitmap, lv, nq, nh, ltot, normalized,
-      words);
+  deform_sample_bwd_kernel<T, HD, NL, kPoints><<<(unsigned)((pairs + kPairs - 1) / kPairs), kThreads, 0, s>>>(
+      (const T*)value, (const float*)loc, (const float*)aw, (const float*)grad_out, (float*)d_loc, (float*)d_aw, rec, lv,
+      pairs, nh, nq, ltot, normalized);
+  e = cudaMemsetAsync(bitmap, 0, (size_t)bitmap_words * sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  mark_kernel<<<dim3((unsigned)((words + kWarps - 1) / kWarps), (unsigned)NL, (unsigned)(b * nh)), kThreads, 0, s>>>(
+      rec, lv, NL, nq, words, bitmap);
+  gather_dv_kernel<T, HD, NL><<<dim3((unsigned)lv.blk0[NL], (unsigned)(b * nh)), kThreads, smem, s>>>(
+      rec, (const float*)grad_out, (T*)d_value, bitmap, lv, nq, nh, ltot, words);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int dispatch_nl(int nl, const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value,
-                void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv, int words, int b,
-                int nq, int nh, int ltot, int normalized, cudaStream_t s) {
+                void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, float* rec, const Levels& lv, int words,
+                int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
   switch (nl) {  // the per-level entry and the model's three levels
     case 1:
-      return launch_levels<T, HD, 1>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words,
-                                     b, nq, nh, ltot, normalized, s);
+      return launch_levels<T, HD, 1>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, rec, lv,
+                                     words, b, nq, nh, ltot, normalized, s);
     case 3:
-      return launch_levels<T, HD, 3>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words,
-                                     b, nq, nh, ltot, normalized, s);
+      return launch_levels<T, HD, 3>(value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, rec, lv,
+                                     words, b, nq, nh, ltot, normalized, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch_hd(int hd, int nl, const void* value, const void* loc, const void* aw, const void* grad_out,
-                void* d_value, void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, const Levels& lv,
-                int words, int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
+                void* d_value, void* d_loc, void* d_aw, unsigned* bitmap, long long bitmap_words, float* rec,
+                const Levels& lv, int words, int b, int nq, int nh, int ltot, int normalized, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return dispatch_nl<T, 16>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words, b,
-                                nq, nh, ltot, normalized, s);
+      return dispatch_nl<T, 16>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, rec, lv, words,
+                                b, nq, nh, ltot, normalized, s);
     case 32:
-      return dispatch_nl<T, 32>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, lv, words, b,
-                                nq, nh, ltot, normalized, s);
+      return dispatch_nl<T, 32>(nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, rec, lv, words,
+                                b, nq, nh, ltot, normalized, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// levels: nl quintuples (h, w, start, tile rows, tile columns) on the host; nl 1
-// or 3, P 4, hd 16 or 32. The levels must lie in consecutive rows of value from
-// `start`; rows past the last level are not written. grad_out, d_loc and d_aw
-// are float32; d_value has value's dtype (float32 or bfloat16, v_bf16) and is
-// written whole over the levels' rows. scratch: the bitmaps, scratch_ints
-// 32-bit words = b * nh * (all levels' tiles) * ceil(nq * P / 32), which the
-// wrapper computes the same way. All pointers must be 16-byte aligned.
+// levels: nl sextuples (h, w, start, tile rows, tile columns, gather warps per
+// tile) on the host, the tiles and warps as the wrapper plans them (at most
+// kCells cells per tile); nl 1 or 3, P 4, hd 16 or 32. The levels must lie in
+// consecutive rows of value from `start`; rows past the last level are not
+// written. grad_out, d_loc and d_aw are float32; d_value has value's dtype
+// (float32 or bfloat16, v_bf16) and is written whole over the levels' rows.
+// scratch: scratch_ints 32-bit words, the bitmaps (b * nh * (all levels'
+// tiles) * ceil(nq / 32) words, rounded up to a multiple of 4) and then the
+// records (b * nh * nl * nq * 12 floats), which the wrapper computes the same
+// way. All pointers must be 16-byte aligned.
 extern "C" int rgbd_deform_sample_bwd(
     const void* value, const void* loc, const void* aw, const void* grad_out, void* d_value, void* d_loc,
     void* d_aw, void* scratch, long long scratch_ints, const int* levels, int b, int nq, int nh, int nl, int npts,
@@ -630,27 +747,35 @@ extern "C" int rgbd_deform_sample_bwd(
     return (int)cudaErrorMisalignedAddress;
   Levels lv = {};
   for (int i = 0; i < nl; ++i) {
-    lv.h[i] = levels[5 * i];
-    lv.w[i] = levels[5 * i + 1];
-    lv.start[i] = levels[5 * i + 2];
-    lv.th[i] = levels[5 * i + 3];
-    lv.tw[i] = levels[5 * i + 4];
+    lv.h[i] = levels[6 * i];
+    lv.w[i] = levels[6 * i + 1];
+    lv.start[i] = levels[6 * i + 2];
+    lv.th[i] = levels[6 * i + 3];
+    lv.tw[i] = levels[6 * i + 4];
+    lv.wpt[i] = levels[6 * i + 5];
     if (lv.h[i] < 1 || lv.w[i] < 1 || lv.h[i] >= (1 << 15) || lv.w[i] >= (1 << 14)) return (int)cudaErrorInvalidValue;
-    if (lv.th[i] < 1 || lv.tw[i] < 1 || lv.th[i] * lv.tw[i] > kMaxTileCells) return (int)cudaErrorInvalidValue;
+    const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
+    if (!pow2(lv.th[i]) || !pow2(lv.tw[i]) || lv.th[i] * lv.tw[i] > kCells || !pow2(lv.wpt[i]) || lv.wpt[i] > kWarps)
+      return (int)cudaErrorInvalidValue;
     const int tiles = ((lv.w[i] + lv.tw[i] - 1) / lv.tw[i]) * ((lv.h[i] + lv.th[i] - 1) / lv.th[i]);
-    if (tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
+    const int tpb = kWarps / lv.wpt[i];
     lv.tile0[i + 1] = lv.tile0[i] + tiles;
+    lv.blk0[i + 1] = lv.blk0[i] + (tiles + tpb - 1) / tpb;
   }
-  for (int i = nl + 1; i <= kMaxLevels; ++i) lv.tile0[i] = lv.tile0[nl];  // every level's tiles: tile0[kMaxLevels]
+  for (int i = nl + 1; i <= kMaxLevels; ++i) {  // every level's tiles and blocks: tile0[nl], blk0[nl]
+    lv.tile0[i] = lv.tile0[nl];
+    lv.blk0[i] = lv.blk0[nl];
+  }
   if ((long long)b * nq * nh == 0) return (int)cudaSuccess;
-  const int words = (int)(((long long)nq * kPoints + 31) / 32);
-  if ((long long)b * nh * lv.tile0[nl] * words != scratch_ints) return (int)cudaErrorInvalidValue;
-  if ((long long)nq * nh * hd >= (1LL << 31)) return (int)cudaErrorInvalidValue;  // the gather's int row offsets
+  const int words = (int)(((long long)nq + 31) / 32);
+  const long long bitmap_words = ((long long)b * nh * lv.tile0[nl] * words + 3) / 4 * 4;
+  if (bitmap_words + (long long)b * nh * nl * nq * kRec != scratch_ints) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   unsigned* bitmap = (unsigned*)scratch;
+  float* rec = (float*)scratch + bitmap_words;
   if (v_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, scratch_ints,
-                                      lv, words, b, nq, nh, ltot, normalized, s);
-  return dispatch_hd<float>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, scratch_ints, lv, words,
-                            b, nq, nh, ltot, normalized, s);
+    return dispatch_hd<__nv_bfloat16>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words,
+                                      rec, lv, words, b, nq, nh, ltot, normalized, s);
+  return dispatch_hd<float>(hd, nl, value, loc, aw, grad_out, d_value, d_loc, d_aw, bitmap, bitmap_words, rec, lv,
+                            words, b, nq, nh, ltot, normalized, s);
 }

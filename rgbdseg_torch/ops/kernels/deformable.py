@@ -14,12 +14,14 @@ the bytes and the design). Its backward (`csrc/deformable_bwd.cu`) is a kernel
 too, one call per encoder layer as well: a pair kernel computes d locations
 and d weights (per level, each (query, head) pair lists its cells of non-zero
 tent value or slope in shared memory, then loads their V rows 8 at a time); d
-value is summed in destination order, without float atomics: a bitmap per
-tile of the level's map marks the points with a value corner in it
-(`tile_plan` sizes the tiles, `tile_lists_plain` is the marked points' plain
-version), and one block per tile gathers those points' contributions in
-ascending order and writes each cell once, in V's dtype, with the same bits
-on every run.
+value is summed in destination order, without float atomics: the pair kernel
+also writes each query's points' coordinates and weights in compact records,
+a mark kernel sets, in a bitmap per tile of each level's map, the queries
+with a point's value corner in it (`tile_lists_plain` is the marked queries'
+plain version), and a gather kernel adds each tile's queries' contributions
+in ascending order (`tile_plan` gives each level's tiles 1 to 8 warps), on
+the tensor cores, reading each query's grad_out row once per tile, and
+writes each cell once, in V's dtype, with the same bits on every run.
 
 The gradient is the JAX package's: there the backward is the VJP of the tent
 twin `tent_sample_level_xla`, which differentiates t_i = max(0, 1 - |g - i|)
@@ -196,65 +198,70 @@ def _check_launch(value, locations, weights, spatial_shapes, starts):
 
 def _level_table(spatial_shapes, starts, tiles=None):
     """(h, w, start) per level for the forward; with `tiles`, (h, w, start, tile
-    rows, tile columns) for the backward."""
+    rows, tile columns, gather warps per tile) for the backward."""
     rows = [(h, w, s) if tiles is None else (h, w, s, *tiles[i])
             for i, (s, (h, w)) in enumerate(zip(starts, spatial_shapes))]
     return (ctypes.c_int * sum(map(len, rows)))(*(x for r in rows for x in r))
 
 
-# The backward's d-value tiles (csrc/deformable_bwd.cu): the shapes (rows,
-# columns) a level may take (kMaxTileCells cells at most), the points a tile
-# aims to list, and the most tiles a level may have (kMaxTiles).
-TILE_SHAPES = ((1, 1), (1, 2), (2, 2), (2, 4), (4, 4), (4, 8))
-TILE_ENTRIES = 768
-MAX_TILES = 1536
+# The backward's d-value tiles (csrc/deformable_bwd.cu): every level is cut
+# into tiles of TILE cells (rows, columns); a gather block has 8 warps, and a
+# level's tiles get 1, 2, 4 or 8 of them each, so that a warp's part of a
+# tile's list is about WARP_QUERIES queries.
+TILE = (4, 8)
+WARP_QUERIES = 64
 
 
-def tile_plan(spatial_shapes, points: int) -> list[tuple[int, int]]:
-    """The backward's d-value tiles, (rows, columns) per level: the largest of
-    TILE_SHAPES whose cells hold at most TILE_ENTRIES points when `points`
-    points (per batch element and head) spread evenly over the level, so that
-    the tiles' lists are of similar length over levels of different sizes; a
-    larger one where that would make more than MAX_TILES tiles."""
+def tile_plan(spatial_shapes, nq: int) -> list[tuple[int, int, int]]:
+    """The backward's d-value tiles, (rows, columns, gather warps per tile) per
+    level. A tile lists the queries with a point's value corner in it; where
+    `nq` queries' points spread evenly over the level and a query's points
+    reach about twice a tile's cells (as at the in-model geometry), a tile
+    lists nq * min(1, 2 * cells / (h * w)) queries, and gets the largest power
+    of two up to 8 of warps that leaves each at least WARP_QUERIES of them."""
+    th, tw = TILE
     plan = []
     for h, w in spatial_shapes:
-        fits = [i for i, (th, tw) in enumerate(TILE_SHAPES) if th * tw * points <= TILE_ENTRIES * h * w]
-        few = [i for i, (th, tw) in enumerate(TILE_SHAPES) if -(-h // th) * -(-w // tw) <= MAX_TILES]
-        if not few:
-            raise ValueError(f"level {h}x{w}: the K1 backward takes at most {MAX_TILES} tiles of "
-                             f"{TILE_SHAPES[-1][0] * TILE_SHAPES[-1][1]} cells")
-        plan.append(TILE_SHAPES[max(fits[-1] if fits else 0, few[0])])
+        listed = nq * min(1.0, 2 * th * tw / (h * w))
+        wpt = 1
+        while wpt < 8 and listed >= 2 * wpt * WARP_QUERIES:
+            wpt *= 2
+        plan.append((th, tw, wpt))
     return plan
 
 
-def scratch_layout(spatial_shapes, tiles, segments: int, nq: int, npts: int = 4) -> tuple[int, int]:
-    """The bucketing's scratch, as the kernel lays it out: (words per bitmap,
-    total 32-bit words). Per (b, head), `segments` of them, and per tile over
-    all levels in order, a bitmap over the points of its level (bit i % 32 of
-    word i // 32: point i = query * P + p lists the tile)."""
-    words = -(-nq * npts // 32)
-    ntiles = sum(-(-h // th) * -(-w // tw) for (h, w), (th, tw) in zip(spatial_shapes, tiles))
-    return words, segments * ntiles * words
+def scratch_layout(spatial_shapes, segments: int, nq: int) -> tuple[int, int]:
+    """The backward's int32 scratch, as the kernels lay it out: (words per
+    bitmap, total 32-bit words). First the bitmaps: per (b, head), `segments`
+    of them, and per tile over all levels in order, a bitmap over the queries
+    (bit q % 32 of word q // 32: one of query q's points at the tile's level
+    has a value corner in it), rounded up to a multiple of 4 words; then the
+    records, float32: per segment, level and query its 4 points' (x, y), and
+    after all of those their weights."""
+    th, tw = TILE
+    words = -(-nq // 32)
+    ntiles = sum(-(-h // th) * -(-w // tw) for h, w in spatial_shapes)
+    return words, -(-segments * ntiles * words // 4) * 4 + segments * len(spatial_shapes) * nq * 12
 
 
-def tile_lists_plain(gx, gy, h: int, w: int, tile) -> list[torch.Tensor]:
+def tile_lists_plain(gx, gy, h: int, w: int) -> list[torch.Tensor]:
     """Plain version of the backward's bucketing for one (b, head, level): gx,
-    gy (n,) the points' pixel coordinates in point order (query-major, P per
-    query). Per tile of `tile` = (rows, columns), in raster order, the indices
-    of the points with a value corner (a cell of non-zero tent value on the
-    map) in it, ascending, each once."""
-    th, tw = tile
+    gy (nq, P) the points' pixel coordinates. Per tile of TILE cells, in raster
+    order, the queries with a point's value corner (a cell of non-zero tent
+    value on the map) in it, ascending, each once."""
+    th, tw = TILE
     ntx = -(-w // tw)
+    nq = gx.shape[0]
     x0, wx, _ = _tent_factors(gx.float())
     y0, wy, _ = _tent_factors(gy.float())
-    member = torch.zeros(-(-h // th) * ntx, gx.numel(), dtype=torch.bool, device=gx.device)
-    points = torch.arange(gx.numel(), device=gx.device)
+    member = torch.zeros(-(-h // th) * ntx, nq, dtype=torch.bool, device=gx.device)
+    queries = torch.arange(nq, device=gx.device)[:, None].expand(gx.shape)
     for dy in (0, 1):
         for dx in (0, 1):
             yy, xx = y0 + dy, x0 + dx
             on = (xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= h - 1) & (wy[1 + dy] * wx[1 + dx] != 0)
             tiles = yy.clamp(0, h - 1).long() // th * ntx + xx.clamp(0, w - 1).long() // tw
-            member[tiles[on], points[on]] = True
+            member[tiles[on], queries[on]] = True
     return [torch.nonzero(m).squeeze(1) for m in member]
 
 
@@ -272,11 +279,14 @@ def _launch(value, locations, weights, spatial_shapes, starts, normalized: bool)
     return out
 
 
-def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: bool, grad_out, scratch=None):
-    """One K1 backward call; returns (d value in value's dtype, d locations, d
-    weights float32). `scratch`: the bucketing's int32 buffer of
-    `scratch_layout`'s total (the tiles' bitmaps, left there), made here where
-    not given."""
+def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: bool, grad_out):
+    """One K1 backward call; returns (d value in value's dtype, d locations, d weights float32)."""
+    return _launch_bwd_impl(value, locations, weights, spatial_shapes, starts, normalized, grad_out)[:3]
+
+
+def _launch_bwd_impl(value, locations, weights, spatial_shapes, starts, normalized: bool, grad_out):
+    """`_launch_bwd`, and the bucketing's int32 scratch after the call (the
+    tiles' bitmaps, laid out as `scratch_layout` says)."""
     b, l, nh, nl, npts, hd, ltot = _check_launch(value, locations, weights, spatial_shapes, starts)
     grad_out = grad_out.float().contiguous()
     if grad_out.shape != (b, l, nh * hd):
@@ -285,27 +295,23 @@ def _launch_bwd(value, locations, weights, spatial_shapes, starts, normalized: b
         raise ValueError(f"level starts {list(starts)}: the backward takes the levels in consecutive rows from 0")
     d_loc = torch.empty_like(locations)
     d_w = torch.empty_like(weights)
+    total = scratch_layout(spatial_shapes, b * nh, l)[-1]
+    scratch = torch.empty(total, dtype=torch.int32, device=value.device)  # the kernels clear it
     if b * l * nh == 0:
-        return torch.zeros_like(value), d_loc, d_w
+        return torch.zeros_like(value), d_loc, d_w, scratch
     d_value = torch.empty_like(value)  # the kernels write every row of the levels, in value's dtype
     end = starts[-1] + spatial_shapes[-1][0] * spatial_shapes[-1][1]
     if end < ltot:
         d_value[:, end:].zero_()  # rows past the last level get no gradient
-    tiles = tile_plan(spatial_shapes, l * npts)
-    total = scratch_layout(spatial_shapes, tiles, b * nh, l, npts)[-1]
-    if scratch is None:
-        scratch = torch.empty(total, dtype=torch.int32, device=value.device)  # the kernels clear it
-    elif scratch.dtype != torch.int32 or scratch.numel() != total or not scratch.is_contiguous():
-        raise ValueError(f"scratch must be {total} contiguous int32, not {scratch.numel()} {scratch.dtype}")
     launch(
         "deformable_bwd",
         value.data_ptr(), locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
         d_value.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(), scratch.data_ptr(), total,
-        _level_table(spatial_shapes, starts, tiles),
+        _level_table(spatial_shapes, starts, tile_plan(spatial_shapes, l)),
         b, l, nh, nl, npts, hd, ltot, int(normalized), int(value.dtype == torch.bfloat16),
         flops=16 * b * l * nh * nl * npts * hd,  # per corner: the product with grad_out, the d value update
     )
-    return d_value, d_loc, d_w
+    return d_value, d_loc, d_w, scratch
 
 
 def _level_starts(spatial_shapes):

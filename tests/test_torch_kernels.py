@@ -393,45 +393,46 @@ def _plain_value_cells(gx, gy, h, w):
 @pytest.mark.parametrize("geometry", ["integer", "spread", "edge"])
 def test_deform_bwd_tile_lists_hold_plain_value_cells(geometry):
     """The K1 backward's bucketing, in its plain version (`tile_lists_plain`,
-    which the card's lists equal: `test_cuda_deform_backward_lists_equal_plain`),
-    against the cells the plain backward adds d value to, at the 480x640 levels
-    and the wrapper's tile plan: every point is listed, once, in each tile that
-    one of its value corners lies in and in no other, the lists ascending, and
-    points with no corner on the map (the "edge" geometry's) in no list."""
+    which the card's bitmaps equal: `test_cuda_deform_backward_lists_equal_plain`),
+    against the cells the plain backward adds d value to, at the 480x640 levels:
+    every query is listed, once, in each tile that one of its points' value
+    corners lies in and in no other, the lists ascending, and queries with no
+    corner on the map (the "edge" geometry's) in no list."""
     b, nh = 1, 2
     _, loc, _ = _k1_bwd_inputs(geometry, b, 16, nh=nh)
     loc = torch.from_numpy(loc)
     l = loc.shape[1]
-    tiles = _deform.tile_plan(LEVELS_480x640, l * 4)
+    th, tw = _deform.TILE
     off_map = 0
     for h_ in range(nh):
-        for lvl, ((h, w), (th, tw)) in enumerate(zip(LEVELS_480x640, tiles)):
-            xy = loc[0, :, h_, lvl].reshape(-1, 2)
-            gx, gy = xy[:, 0] * w - 0.5, xy[:, 1] * h - 0.5
-            lists = _deform.tile_lists_plain(gx, gy, h, w, (th, tw))
+        for lvl, (h, w) in enumerate(LEVELS_480x640):
+            xy = loc[0, :, h_, lvl]  # (l, P, 2)
+            gx, gy = xy[..., 0] * w - 0.5, xy[..., 1] * h - 0.5
+            lists = _deform.tile_lists_plain(gx, gy, h, w)
             assert len(lists) == -(-h // th) * -(-w // tw)
             assert all(bool((t[1:] > t[:-1]).all()) for t in lists)
-            got = {(p, tile) for tile, t in enumerate(lists) for p in t.tolist()}
-            cells = _plain_value_cells(gx, gy, h, w)
+            got = {(q, tile) for tile, t in enumerate(lists) for q in t.tolist()}
+            cells = _plain_value_cells(gx.reshape(-1), gy.reshape(-1), h, w)
             ntx = -(-w // tw)
-            assert got == {(p, c // w // th * ntx + c % w // tw) for p, c in cells}
-            off_map += gx.numel() - len({p for p, _ in cells})
+            assert got == {(p // 4, c // w // th * ntx + c % w // tw) for p, c in cells}
+            off_map += l - len({p // 4 for p, _ in cells})
     assert off_map > 0 if geometry == "edge" else True
 
 
 def test_deform_bwd_tile_plan():
-    """The backward's tiles at the 480x640 levels: 2x4, 4x8 and 4x8 cells (40,
-    40 and 150 tiles), so that the in-model lists are of similar length (84,
-    21 and 5.25 points per cell); every plan within the kernel's 32 cells and
-    MAX_TILES tiles; a level that would need more is refused."""
-    assert _deform.tile_plan(LEVELS_480x640, 6300 * 4) == [(2, 4), (4, 8), (4, 8)]
-    for shapes, points in ((((9, 11),), 800), (((150, 200),), 4), (((1, 1), (2, 3), (60, 80)), 10**6)):
-        for (h, w), (th, tw) in zip(shapes, _deform.tile_plan(shapes, points)):
-            assert th * tw <= 32 and -(-h // th) * -(-w // tw) <= _deform.MAX_TILES
-    with pytest.raises(ValueError):
-        _deform.tile_plan(((250, 250),), 4)
-    words, total = _deform.scratch_layout(LEVELS_480x640, [(2, 4), (4, 8), (4, 8)], 16, 6300)
-    assert (words, total) == (788, 16 * (40 + 40 + 150) * 788)
+    """The backward's tiles at the 480x640 levels (15x20, 30x40, 60x80): 4x8
+    cells everywhere, and 8, 4 and 1 gather warps per tile at the in-model 6300
+    queries (a tile lists about 1344, 336 and 84 queries there if they spread
+    evenly), so that the warps' parts are of similar length; at most 8 warps,
+    at least 1; the bitmaps' scratch at the in-model shapes."""
+    assert _deform.tile_plan(LEVELS_480x640, 6300) == [(4, 8, 8), (4, 8, 4), (4, 8, 1)]
+    for shapes, nq in ((((9, 11),), 200), (((150, 200),), 1), (((1, 1), (2, 3), (60, 80)), 10**6)):
+        for (h, w), (th, tw, wpt) in zip(shapes, _deform.tile_plan(shapes, nq)):
+            assert (th, tw) == _deform.TILE and wpt in (1, 2, 4, 8)
+    assert [p[2] for p in _deform.tile_plan(((1, 1), (150, 200), (150, 200)), 100)] == [1, 1, 1]
+    assert [p[2] for p in _deform.tile_plan(((1, 1), (150, 200)), 10**6)] == [8, 8]
+    words, total = _deform.scratch_layout(LEVELS_480x640, 16, 6300)
+    assert (words, total) == (197, 16 * (150 + 40 + 12) * 197 + 16 * 3 * 6300 * 12)
 
 
 def _k1_bwd_twice(fn, inputs, grad_out):
@@ -513,25 +514,25 @@ def test_cuda_deform_backward_4_heads_same_bits(geometry):
 @pytest.mark.parametrize("geometry", ["model", "integer", "spread", "edge"])
 def test_cuda_deform_backward_lists_equal_plain(geometry):
     """The K1 backward's bucketing on the card: per (b, head, level) and tile,
-    the bitmap's set bits are exactly the points `tile_lists_plain` lists (in
-    ascending order, as the gather walks them), on a scratch the kernels find
-    full of ones."""
+    the bitmap's set bits are exactly the queries `tile_lists_plain` lists (in
+    ascending order, as the gather walks them)."""
     _need_cuda()
     b, nh = 2, 8
     value, loc, weights = (torch.from_numpy(a).cuda() for a in _k1_bwd_inputs(geometry, b, 32))
     l = loc.shape[1]
     g = torch.randn(b, l, nh * 32, device="cuda")
-    tiles = _deform.tile_plan(LEVELS_480x640, l * 4)
-    words, total = _deform.scratch_layout(LEVELS_480x640, tiles, b * nh, l)
-    scratch = torch.full((total,), -1, dtype=torch.int32, device="cuda")  # the kernels must clear it
-    _deform._launch_bwd(value, loc, weights, LEVELS_480x640, [0, 300, 1500], True, g, scratch=scratch)
-    bits = (scratch.cpu().reshape(b * nh, -1, words, 1) >> torch.arange(32, dtype=torch.int32)) & 1
+    words, _ = _deform.scratch_layout(LEVELS_480x640, b * nh, l)
+    th, tw = _deform.TILE
+    ntiles = sum(-(-h // th) * -(-w // tw) for h, w in LEVELS_480x640)
+    scratch = _deform._launch_bwd_impl(value, loc, weights, LEVELS_480x640, [0, 300, 1500], True, g)[3]
+    bitmaps = scratch[: b * nh * ntiles * words].cpu()
+    bits = (bitmaps.reshape(b * nh, ntiles, words, 1) >> torch.arange(32, dtype=torch.int32)) & 1
     loc = loc.cpu()
     for bh in range(b * nh):
         first = 0
-        for lvl, ((h, w), tile) in enumerate(zip(LEVELS_480x640, tiles)):
-            xy = loc[bh // nh, :, bh % nh, lvl].reshape(-1, 2)
-            want = _deform.tile_lists_plain(xy[:, 0] * w - 0.5, xy[:, 1] * h - 0.5, h, w, tile)
+        for lvl, (h, w) in enumerate(LEVELS_480x640):
+            xy = loc[bh // nh, :, bh % nh, lvl]
+            want = _deform.tile_lists_plain(xy[..., 0] * w - 0.5, xy[..., 1] * h - 0.5, h, w)
             for t, ref in enumerate(want):
                 got = torch.nonzero(bits[bh, first + t].reshape(-1)).squeeze(1)
                 assert torch.equal(got, ref), (bh, lvl, t)

@@ -41,6 +41,7 @@ from test_torch_kernels import (
 K3_RTOL = 1e-2
 K1_TOL = 2e-2
 K3_TOL_BF16 = 2e-2  # chip_smoke.K3_TOL_BF16: K3 in bf16 against its plain version, absolute
+K3_BF16_F32_RTOL = 1e-2  # chip_smoke.K3_BF16_F32_RTOL: against the f32 plain version, x its largest |output|
 
 
 @pytest.fixture
@@ -99,10 +100,12 @@ def test_mca_plain_bf16_matches_jax_pallas_kernel(jx, nk):
 @pytest.mark.parametrize("nk", [300, 1200, 4800])
 def test_cuda_mca_bf16_forward_matches_plain(nk):
     """K3's bf16 forward (bf16 mma.sync, p rounded to bf16) against the plain
-    version in bf16 and against the float32 plain version of the same bf16
-    values, which rounds neither the scores nor p: both within K3_TOL_BF16,
-    at the main path's shapes (B=2, 8 heads, 100 queries, hd 32) and at hd
-    16 and 64 with 129 queries."""
+    version in bf16, within K3_TOL_BF16, and against the float32 plain version
+    of the same bf16 values, which rounds neither the scores nor p, within
+    K3_BF16_F32_RTOL x its largest |output| (chip_smoke's limit) over the
+    random rows (rows 0 and 1, all blocked and one key, have outputs of single
+    value rows, several times the others'), at the main path's shapes (B=2, 8
+    heads, 100 queries, hd 32) and at hd 16 and 64 with 129 queries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     from rgbdseg_torch.ops.kernels.masked_attention import masked_cross_attention
@@ -113,10 +116,11 @@ def test_cuda_mca_bf16_forward_matches_plain(nk):
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
         out = masked_cross_attention(qb, kb, vb, m, ab)
         assert out.dtype == torch.bfloat16
-        for ref in (masked_cross_attention_plain(qb, kb, vb, m, ab),
-                    masked_cross_attention_plain(qb.float(), kb.float(), vb.float(), m, ab)):
-            err = (out.float() - ref.float()).abs().max().item()
-            assert err <= K3_TOL_BF16, (nq, hd, err)
+        err = (out.float() - masked_cross_attention_plain(qb, kb, vb, m, ab).float()).abs().max().item()
+        assert err <= K3_TOL_BF16, (nq, hd, err)
+        ref32 = masked_cross_attention_plain(qb.float(), kb.float(), vb.float(), m, ab)[:, :, 2:]
+        err = (out.float()[:, :, 2:] - ref32).abs().max().item()
+        assert err <= K3_BF16_F32_RTOL * ref32.abs().max().item(), (nq, hd, err)
     torch.cuda.synchronize()
 
 
