@@ -164,8 +164,18 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      trainer_state.json, `mask_check.label_check` of its train meta (the card's
      overlays equal to the CPU's), `predict_torch.py --compare` of its
      prediction and GT JSONs, every PNG read back;
+  21. bench (`run_bench`): `bench_torch.bench_infer`, `bench_train`,
+     `bench_eval` and `bench_pipeline` (8 synthetic 480x640 examples under
+     build/chip_smoke/bench_disk) in this process at 3 timed calls each, at the
+     default dtype (bfloat16): bench.py's keys per mode, every number finite
+     and positive, MFU in (0, 1], device ms per call within 1.05 x the wall
+     ms, and 6 K1 + 9 K3 launches per forward and 6 K1-bwd + 9 K3-bwd per
+     train step, all on their bfloat16 routes; then `python3 bench_torch.py`
+     in a child process (BENCH_ITERS=3, BENCH_DISK_N=8), whose one stdout line
+     must be the merged JSON of BENCH_MODE=all;
   19. a `kernels` JSON line (its launches include phase 18's, the children's
-     summed, and phase 20's); the last line is the device JSON.
+     summed, phase 20's and phase 21's in-process ones); the last line is the
+     device JSON.
 With --profile, phases 4, 6 and 13 also profile one request, one train step
 and one bf16 and one float32 step of phase 13 (torch.profiler): the device's
 busy share and the kernels that take the most device time.
@@ -176,6 +186,7 @@ either it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1713,30 +1724,13 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     import torch
 
     from rgbdseg_torch.config import ModelConfig, PreprocessConfig
-    from rgbdseg_torch.ops import kernels as K
-    from rgbdseg_torch.ops.kernels import deformable as KD
-    from rgbdseg_torch.ops.kernels import masked_attention as KM
     from rgbdseg_torch.train.arguments import TrainingArguments
     from rgbdseg_torch.train.trainer import build_training, train_step
 
     cfg = ModelConfig(num_labels=40, version="0.4.0")
     pp = PreprocessConfig(height=pp_hw[0], width=pp_hw[1])
-    by_dtype = {}
-
-    def counting(module):  # the launches by the operand dtype the wrapper passed (the last int flag)
-        original = module.launch
-
-        def launch(name, *a, **kw):
-            by_dtype[(name, "bfloat16" if a[-1] else "float32")] = by_dtype.get(
-                (name, "bfloat16" if a[-1] else "float32"), 0) + 1
-            return original(name, *a, **kw)
-
-        return original, launch
-
-    (kd_orig, kd_launch), (km_orig, km_launch) = counting(KD), counting(KM)
-    KD.launch, KM.launch = kd_launch, km_launch
     readings, times, shares = {}, {}, {}
-    try:
+    with launches_by_dtype() as by_dtype:
         for bf16 in (True, False):
             model, opt = build_training(cfg, TrainingArguments(learning_rate=1e-4, weight_decay=0.05, bf16=bf16,
                                                                per_device_train_batch_size=TRAIN_B), 8, seed=seed)
@@ -1750,8 +1744,6 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
                 shares[bf16] = profile_call(f"{'bf16' if bf16 else 'float32'} train step (one micro-batch)",
                                             lambda: train_step(model, opt, micro[0], gen, pp), top=15 if profile else 5)
             del model, opt
-    finally:
-        KD.launch, KM.launch = kd_orig, km_orig
     (lb, nb, db), (lf, nf, df) = readings[True], readings[False]
     want = {"bfloat16": {("deformable", "bfloat16"): 6, ("deformable_bwd", "bfloat16"): 6,
                          ("masked_attention", "bfloat16"): 9, ("masked_attention_bwd", "bfloat16"): 9},
@@ -1771,6 +1763,31 @@ def run_bf16_step(seed: int, step0, micro, steady_f32, pp_hw=(480, 640), profile
     wall, busy, port_ms = shares[True]
     log(f"bf16 step: under the profiler {wall:.2f} ms, device busy {busy:.2f} ms; the port's kernels (bf16 operands) "
         f"{port_ms:.3f} ms = {100 * port_ms / busy:.1f}% of device time, {100 * port_ms / wall:.2f}% of the step")
+
+
+@contextlib.contextmanager
+def launches_by_dtype():
+    """{(kernel, operand dtype): launches} while the block runs: each module's
+    `launch` wrapped to read the dtype flag its wrapper passes (the last int)."""
+    from rgbdseg_torch.ops.kernels import deformable as KD
+    from rgbdseg_torch.ops.kernels import masked_attention as KM
+
+    counts = {}
+
+    def counting(original):
+        def launch(name, *a, **kw):
+            key = (name, "bfloat16" if a[-1] else "float32")
+            counts[key] = counts.get(key, 0) + 1
+            return original(name, *a, **kw)
+
+        return launch
+
+    originals = KD.launch, KM.launch
+    KD.launch, KM.launch = counting(KD.launch), counting(KM.launch)
+    try:
+        yield counts
+    finally:
+        KD.launch, KM.launch = originals
 
 
 def run_finetune(seed: int, out_dir: Path):
@@ -3071,6 +3088,117 @@ def run_tools(seed: int, rng, out_dir: Path, device: str = "cuda", card: str = "
     return launches
 
 
+# The bench phase (21): `bench_torch.py`, the port's counterpart of bench.py.
+BENCH_ITERS, BENCH_DISK_N = 3, 8  # timed calls per section; the disk-fed bench's examples
+ALL_KEYS = {"metric", "value", "unit", "vs_baseline", "tflops_per_sec", "mfu", "device_kind", "wall_ms_per_image",
+            "chunk_ms_per_image", "device_ms_per_image", "train_images_per_sec", "train_vs_baseline", "train_mfu",
+            "train_device_ms_per_step", "eval_images_per_sec", "eval_vs_baseline", "eval_metric_compute_s"}
+
+
+@contextlib.contextmanager
+def forwards_by_mode():
+    """{True: train-mode forwards, False: eval-mode ones} of Mask2FormerRGBD while the block runs."""
+    from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
+
+    counts = {True: 0, False: 0}
+    original = Mask2FormerRGBD.forward
+
+    def forward(self, *a, **kw):
+        counts[self.training] += 1
+        return original(self, *a, **kw)
+
+    Mask2FormerRGBD.forward = forward
+    try:
+        yield counts
+    finally:
+        Mask2FormerRGBD.forward = original
+
+
+def _check_bench_result(label: str, r: dict, keys: set) -> None:
+    """The keys of the mode; every number finite and positive (the rounded
+    compute seconds may read 0); MFU in (0, 1]; device ms per call within
+    1.05 x the wall ms."""
+    if set(r) != keys:
+        raise AssertionError(f"bench {label}: keys {sorted(r)}, expected {sorted(keys)}")
+    for k, v in r.items():
+        if isinstance(v, (str, bool)):
+            continue
+        for x in v if isinstance(v, list) else [v]:
+            if not (np.isfinite(x) and (x > 0 or (k.endswith("compute_s") and x == 0))):
+                raise AssertionError(f"bench {label}: {k} = {v}")
+    for k in ("mfu", "train_mfu"):
+        if k in r and not 0 < r[k] <= 1:
+            raise AssertionError(f"bench {label}: {k} = {r[k]} outside (0, 1]")
+    for dev, wall in (("device_ms_per_image", "wall_ms_per_image"), ("device_ms_per_step", "wall_ms_per_step")):
+        if dev in r and not r[dev] <= 1.05 * r[wall]:
+            raise AssertionError(f"bench {label}: {dev} {r[dev]} above 1.05 x {wall} {r[wall]}")
+
+
+def run_bench(repo: Path, card: str) -> dict:
+    """Phase 21: `bench_torch.bench_infer`, `bench_train` and `bench_eval` in
+    this process at BENCH_ITERS calls, and `bench_pipeline` over BENCH_DISK_N
+    synthetic 480x640 examples written under build/chip_smoke/bench_disk, at
+    the default dtype (bfloat16): each result's keys and values checked, and
+    every forward's kernels launched on their bfloat16 routes (6 K1 and 9 K3
+    per forward, 6 K1-bwd and 9 K3-bwd per train-mode forward); then
+    `python3 bench_torch.py` in a child process with BENCH_ITERS and
+    BENCH_DISK_N set, whose one stdout line must be the merged JSON of `all`.
+    Returns the kernels' launches of this process's benches."""
+    import torch
+
+    import bench_torch
+
+    total = {}
+    env = {"BENCH_DISK_N": str(BENCH_DISK_N), "BENCH_DISK_ROOT": str(repo / "build" / "chip_smoke" / "bench_disk")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        for mode, keys in (
+            ("infer", {"metric", "value", "unit", "vs_baseline", "tflops_per_sec", "mfu", "device_kind",
+                       "wall_ms_per_image", "chunk_ms_per_image", "device_ms_per_image"}),
+            ("train", {"metric", "value", "unit", "vs_baseline", "tflops_per_sec", "mfu", "device_kind",
+                       "wall_ms_per_step", "device_ms_per_step"}),
+            ("eval", {"metric", "value", "unit", "vs_baseline", "metric_compute_s"}),
+            ("pipeline", {"metric", "value", "unit", "vs_baseline", "pipeline_cold_img_s", "pipeline_cached_img_s",
+                          "upload_bound_img_s", "device_channels", "host_cores"}),
+        ):
+            with launches_by_dtype() as by_dtype, forwards_by_mode() as fwd:
+                r, ms = _timed(lambda: getattr(bench_torch, f"bench_{mode}")(iters=BENCH_ITERS))
+            _check_bench_result(mode, r, keys)
+            n, t = fwd[False] + fwd[True], fwd[True]
+            want = {("deformable", "bfloat16"): 6 * n, ("masked_attention", "bfloat16"): 9 * n}
+            if t:
+                want.update({("deformable_bwd", "bfloat16"): 6 * t, ("masked_attention_bwd", "bfloat16"): 9 * t})
+            if by_dtype != want or not n or (mode in ("train", "pipeline")) != (t == n):
+                raise AssertionError(f"bench {mode}: {n} forwards ({t} in train mode), launches {by_dtype}; "
+                                     f"expected {want}")
+            for (name, _), c in by_dtype.items():
+                total[name] = total.get(name, 0) + c
+            log(f"bench {mode}: {json.dumps(r)}; {n} forwards ({t} train steps), launches by operand dtype "
+                f"{sorted(by_dtype.items())}; {ms / 1e3:.1f} s [{card}]")
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    child, ms = _timed(lambda: subprocess.run(
+        [sys.executable, str(repo / "bench_torch.py")], cwd=repo, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "BENCH_ITERS": str(BENCH_ITERS), "BENCH_DISK_N": str(BENCH_DISK_N)}))
+    lines = child.stdout.strip().splitlines()
+    if child.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_torch.py: exit {child.returncode}, stdout {child.stdout[-2000:]!r}, "
+                             f"stderr {child.stderr[-3000:]!r}")
+    merged = json.loads(lines[0])
+    _check_bench_result("all", merged, ALL_KEYS)
+    if merged["device_kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench all: device_kind {merged['device_kind']}")
+    log(f"bench all (python3 bench_torch.py, BENCH_ITERS={BENCH_ITERS}): {lines[0]}; {ms / 1e3:.1f} s [{card}]")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3144,6 +3272,10 @@ def main(argv=None) -> int:
     for k, v in tools_launches.items():
         launches[k] += v
     log(f"tools: phase took {t_tools / 1e3:.1f} s")
+    bench_launches, t_bench = _timed(lambda: run_bench(repo, smi))
+    for k, v in bench_launches.items():
+        launches[k] += v
+    log(f"bench: phase took {t_bench / 1e3:.1f} s")
 
     meta = {
         "deform_sample_levels": ("rgbdseg_torch/csrc/deformable.cu", "rgbdseg_tpu/ops/kernels/deformable.py:337", "deformable"),

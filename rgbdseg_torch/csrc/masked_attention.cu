@@ -405,13 +405,12 @@ int launch_typed(const void* q, const void* k, const void* v, const void* mask, 
   const int per_tile = (nq + qtiles - 1) / qtiles;
   const int q_rows = (per_tile + kRowsPerWarp - 1) / kRowsPerWarp * kRowsPerWarp;
   const size_t smem = Layout<T, HD>::bytes(q_rows);
-  static bool attr_set = false;
-  if (!attr_set) {
+  // Set on every call: the attribute belongs to the current device.
+  {
     const cudaError_t e = cudaFuncSetAttribute(mca_split_kernel<T, HD>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)Layout<T, HD>::bytes(kMaxRows));
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
   }
   const int mask_vec = (nk % 4 == 0) && ((uintptr_t)mask % 16 == 0);
   const dim3 grid((unsigned)splits, (unsigned)nh, (unsigned)(b * qtiles));

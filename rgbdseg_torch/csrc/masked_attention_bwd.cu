@@ -757,8 +757,8 @@ int launch_typed(const void* q, const void* k, const void* v, const void* mask, 
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int qp = (min(nq, kMaxRows) + 15) / 16 * 16;
   const size_t smem = kBf16 ? SmemBf16<HD>::bytes(qp) : Smem<HD>::bytes(qp);
-  static bool attr_set = false;
-  if (!attr_set) {
+  // Set on every call: the attribute belongs to the current device.
+  {
     cudaError_t e;
     if constexpr (kBf16)
       e = cudaFuncSetAttribute(mca_bwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -767,7 +767,6 @@ int launch_typed(const void* q, const void* k, const void* v, const void* mask, 
       e = cudaFuncSetAttribute(mca_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Smem<HD>::bytes(kMaxRows));
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
   }
   const int words = 2 * ((nk + kTileK - 1) / kTileK);
   uint32_t* allowed = reinterpret_cast<uint32_t*>((float*)dq_part + (size_t)b * nh * nq * splits * HD);

@@ -13,7 +13,10 @@ promotes them (`flax.linen.dtypes.promote_dtype`). So:
   which stay float32: float32 under the bf16 policy. In eval mode the JAX
   package folds each BatchNorm into the convolution before it
   (`fusion.py::_conv_bn_relu`, `EnhancedDepthImageRatioPredictor`), so the
-  normalised output keeps the convolution's dtype: here, the input's;
+  normalised output keeps the convolution's dtype: here, the input's. It
+  reads the running statistics in float32 whatever their dtype (a serving
+  model cast whole to bfloat16, as `bench_torch.py` casts it, holds them in
+  bfloat16; the JAX module reads them through `astype(float32)`);
 - `promote(*tensors)` casts operands of a product to their promoted dtype.
 
 Under data parallelism (a mesh of data width above 1 active,
@@ -95,9 +98,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         dt = promoted(x, self.weight, self.bias, self.running_mean, self.running_var) if self.training else x.dtype
         if self.training:
             self.num_batches_tracked.add_(1)
+            mean, var = self.running_mean, self.running_var  # updated in place, float32
+        else:
+            mean, var = _f32(self.running_mean), _f32(self.running_var)
         w, b = _f32(self.weight), _f32(self.bias)
-        return F.batch_norm(x.float(), self.running_mean, self.running_var, w, b, self.training,
-                            self.momentum, self.eps).to(dt)
+        return F.batch_norm(x.float(), mean, var, w, b, self.training, self.momentum, self.eps).to(dt)
 
     def _forward_global(self, x: torch.Tensor, group) -> torch.Tensor:
         """Train mode over the data group's global batch (float32, as the

@@ -98,7 +98,9 @@ class Evaluator:
     def _materialize_stats(outs, done=None):
         if done is not None:
             done.synchronize()
-        scores, labels, darea, garea, inter = (x.numpy() for x in outs)
+        # bfloat16 scores (of a model cast whole to bfloat16) widen exactly: numpy has no bfloat16
+        scores, labels, darea, garea, inter = (x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+                                               for x in outs)
         # The host path reads scores from segments_info, rounded to 6 decimals
         # (the reference's post-processing): round here too, so both paths
         # feed the metric the same numbers.

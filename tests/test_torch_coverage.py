@@ -8,9 +8,10 @@ public method of a top-level class, must be
   a method, or a module-level assignment;
 - or listed in `RENAMED` with the port's `module::name`, which must exist;
 - or listed in `CLOSED` with its one-line reason, which ROADMAP.md §1 states
-  word for word ("Closed without a module");
-- or listed in `PENDING`, which holds the bench entry alone.
-A JAX name added without a counterpart fails here. Every function that
+  word for word ("Closed without a module").
+`PENDING`, the modules still to port, is empty: the bench entry (`bench.py` ->
+`bench_torch.py`) was the last. A JAX name added without a counterpart fails
+here. Every function that
 encloses a `pl.pallas_call` must stand in PERF.md §6's kernel table, with its
 call's line, in a row whose port column is filled.
 """
@@ -26,7 +27,7 @@ JAX_SCRIPTS = sorted(["finetune.py", "predict.py", "bench.py", "__graft_entry__.
                       "_bisect_train.py"] + [p.name for p in REPO.glob("_prof_*.py")]
                      + [p.name for p in REPO.glob("_hlo_*.py")])
 JAX_MODULES = sorted(str(p.relative_to(REPO)) for p in (REPO / "rgbdseg_tpu").rglob("*.py")) + JAX_SCRIPTS
-PORT_SCRIPTS = {"finetune.py": "finetune_torch.py", "predict.py": "predict_torch.py"}
+PORT_SCRIPTS = {"finetune.py": "finetune_torch.py", "predict.py": "predict_torch.py", "bench.py": "bench_torch.py"}
 
 # JAX module::name -> the port's module::name that does its work under another name
 RENAMED = {
@@ -80,7 +81,7 @@ CLOSED = {
     **{name: PROFILING for name in JAX_SCRIPTS if name.startswith(("_prof_", "_hlo_", "_roofline", "_bisect"))},
 }
 
-PENDING = {"bench.py": "the bench entry: the first `benchmark` PR"}
+PENDING = {}  # JAX module or module::name -> why it waits; nothing waits
 
 
 def _public_names(path: Path) -> list[str]:
@@ -179,8 +180,12 @@ def test_closed_entries_carry_the_roadmap_reason():
 
 
 def test_only_the_bench_entry_is_pending():
-    assert PENDING == {"bench.py": "the bench entry: the first `benchmark` PR"}
-    assert "bench entry" in _roadmap_section_1()
+    """The bench entry was the last module pending; now none is, and ROADMAP.md
+    §1 says the port does all the JAX package does."""
+    assert PENDING == {}
+    assert _port_module("bench.py") == "bench_torch.py" and (REPO / "bench_torch.py").exists()
+    section = _roadmap_section_1()
+    assert "bench entry" in section and "all that the JAX package does" in section
 
 
 def _pallas_functions() -> list[tuple[str, str, int]]:

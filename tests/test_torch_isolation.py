@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import bench_torch
+
 from rgbdseg_tpu.config import ModelConfig as JConfig
 from rgbdseg_tpu.models.mask2former import Mask2FormerRGBD as JModel
 from rgbdseg_torch import versions as TV
@@ -42,7 +44,8 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "PIL", "matplotlib", "safetensors",
              "transformers"}
 PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [
-    REPO / name for name in ("chip_smoke.py", "kernel_ab.py", "finetune_torch.py", "predict_torch.py")]
+    REPO / name for name in ("chip_smoke.py", "kernel_ab.py", "finetune_torch.py", "predict_torch.py",
+                             "bench_torch.py")]
 
 
 def _nodes(tree, in_functions: bool = True):
@@ -92,6 +95,15 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         put_batch(batch, TrainingArguments())
     assert put_batch(batch, TrainingArguments(), "cpu").pixel_values.dtype == torch.uint8
+    # the bench entry: no CPU fallback, before any work; --device cpu is taken off argv
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_torch.main([])
+    for bench in (bench_torch.bench_infer, bench_torch.bench_train, bench_torch.bench_eval,
+                  bench_torch.bench_pipeline):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench(cfg=ModelConfig.tiny(version="0.4.0"), h=32, w=32, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_torch._build_train_state(ModelConfig.tiny(version="0.4.0"), 32, 32, bf16=True)
 
 
 def test_native_code_is_loaded_through_ctypes_only():
