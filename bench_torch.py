@@ -108,10 +108,14 @@ def _dtype() -> torch.dtype:
 
 def _setup(device) -> torch.device:
     """The device (the card unless `device` names another; raises without
-    CUDA), with TF32 off for float32 matmuls and convolutions."""
+    CUDA), with TF32 off for float32 matmuls and convolutions and cuDNN's
+    deterministic algorithms, as the training entries set them
+    (`train.trainer.set_matmul_precision`), so the step timed is the one users run."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev
 
 

@@ -28,6 +28,11 @@ has what it needs (else it says so and is skipped):
   (K1's d value apart: the parent adds it with float atomics), and whether two
   launches of this tree's K1 backward do; each launch's per-kernel split, the
   parent's zeroing and bf16 cast of d value counted on its side.
+- point sampling: the criterion's gradient to the mask logits at the train
+  phase's geometry, as the parent computes it (aten's
+  `grid_sampler_2d_backward` where it has no point-sampling kernel) and as
+  this tree's kernel does, each held against the plain backward; whether two
+  launches of each give the same bits; each launch's per-kernel split.
 - requests (not with --kernels-only): both commits' full-width 0.4.0 models,
   with the same seeded weights, serve the same 480x640 frame in turns old,
   new, new, old (`--requests` rounds): median request ms of each, and their
@@ -39,6 +44,14 @@ has what it needs (else it says so and is skipped):
   (`--requests` rounds): median step ms of each.
 
 Prints one line per shape and a JSON line; needs one CUDA card.
+
+    python3 kernel_ab.py --cudnn-cost [--seed N] [--requests N]
+
+runs, instead, this tree's float32 train step (`chip_smoke.py` phase 6's
+batch) with cuDNN's default algorithms and with its deterministic ones (as the
+training entries set them), in turns default, deterministic, deterministic,
+default: device ms per step (the sum of its kernels' device times over
+`--requests` profiled steps each) and the kernels whose time differs most.
 
     python3 kernel_ab.py --parent DIR --parallel [--seed N]
 
@@ -163,6 +176,52 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
     return rows
 
 
+def point_sample_ab(parent_kernels, rng) -> list[dict]:
+    """The point-sampling section: the criterion's gradient to the mask logits
+    at the train phase's geometry (`chip_smoke.point_sample_inputs`), as the
+    parent computes it where it has no point-sampling kernel (aten's
+    `grid_sampler_2d_backward`, float atomics) and as this tree's kernel does,
+    each held against the plain backward first; whether two launches of each
+    give the same bits; the per-kernel split."""
+    import torch
+
+    from rgbdseg_torch.ops.kernels import point_sample as KP
+
+    masks, coords = cs.point_sample_inputs(rng, torch.device("cuda"))[1]
+    b, n, npts, _ = coords.shape
+    h, w = masks.shape[2:]
+    g = torch.from_numpy(rng.randn(b, n, npts).astype(np.float32)).cuda()
+    if "point_sample_bwd" in parent_kernels._SIGNATURES:
+        old_mod = importlib.import_module("parent_rgbdseg_torch.ops.kernels.point_sample")
+
+        def old():
+            return old_mod._launch_bwd(coords, g, h, w)
+    else:
+        grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
+        img, go = masks.reshape(b * n, 1, h, w), g.reshape(b * n, 1, 1, npts)
+
+        def old():
+            return torch.ops.aten.grid_sampler_2d_backward(go, img, grid, 0, 0, False, [True, False])[0].reshape(
+                b, n, h, w)
+
+    def new():
+        return KP._launch_bwd(coords, g, h, w)
+
+    ref = KP.point_sample_plain_bwd(masks, coords, g)
+    same = {}
+    for label, fn in (("old", old), ("new", new)):
+        cs._check_grads(f"ab point_sample_bwd {label}", [fn()], [ref], cs.POINT_BWD_RTOL)
+        same[label] = torch.equal(fn(), fn())
+    if not same["new"]:
+        raise AssertionError("point_sample_bwd: two launches give different bits")
+    cs.log(f"ab point_sample_bwd: two launches give the same bits: old {same['old']}, new {same['new']}")
+    split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
+    for label, ms in split.items():
+        cs.log(f"ab point_sample_bwd {label} per kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return [dict(kernel="point_sample_bwd", dtype="float32", same_bits=same, kernels_ms=split,
+                 **ab(f"point_sample_bwd {b}x{n} masks {h}x{w}, P={npts}", old, new))]
+
+
 def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
     """The full-width 0.4.0 model of both commits (same seeded weights), serving the
     same frames in turns old, new, new, old; request ms and the logits' difference."""
@@ -268,6 +327,51 @@ def _agree(label: str, old, new, ref, tol: float) -> None:
         raise AssertionError(f"{label} disagrees with the plain version: {errs}")
 
 
+def cudnn_cost(seed: int, rounds: int) -> dict:
+    """`--cudnn-cost`: the float32 train step with
+    `torch.backends.cudnn.deterministic` False and True in turns; per setting
+    the device ms per step (torch.profiler, the sum of the kernels' device
+    times) and every kernel's ms per step; logs the kernels whose time moved
+    most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbdseg_torch.config import ModelConfig
+    from rgbdseg_torch.train.arguments import TrainingArguments
+    from rgbdseg_torch.train.trainer import build_training, train_step
+
+    cfg = ModelConfig(num_labels=40, version="0.4.0")
+    model, opt = build_training(cfg, TrainingArguments(learning_rate=1e-4, weight_decay=0.05,
+                                                       per_device_train_batch_size=cs.TRAIN_B), 8, seed=seed)
+    batch = cs.stack_batch(np.random.RandomState(seed), cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    per_kernel = {False: {}, True: {}}
+    totals = {False: [], True: []}
+    for flag in (False, True, True, False):
+        torch.backends.cudnn.deterministic = flag
+        train_step(model, opt, batch, gen)  # the algorithms of this setting chosen and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        totals[flag].append(sum(e.self_device_time_total for e in events) / rounds / 1e3)
+        for e in events:
+            name = e.key.split("(")[0].removeprefix("void ")[:72]
+            per_kernel[flag][name] = per_kernel[flag].get(name, 0.0) + e.self_device_time_total / rounds / 1e3 / 2
+    torch.backends.cudnn.deterministic = True
+    moved = sorted(set(per_kernel[False]) | set(per_kernel[True]),
+                   key=lambda k: -abs(per_kernel[True].get(k, 0.0) - per_kernel[False].get(k, 0.0)))
+    cs.log(f"cudnn cost: float32 train step device ms, default algorithms {totals[False]}, deterministic "
+           f"{totals[True]} (turns default, deterministic, deterministic, default; {rounds} steps each)")
+    for k in moved[:12]:
+        cs.log(f"cudnn cost: {per_kernel[False].get(k, 0.0):.4f} -> {per_kernel[True].get(k, 0.0):.4f} ms per step "
+               f"{k}")
+    return {"device_ms": totals, "kernels_ms": per_kernel}
+
+
 def phase18(root: Path, seed: int) -> int:
     """`chip_smoke.py` phase 18 of the checkout at `root`, with its package, in
     this process (which must not have imported `rgbdseg_torch` yet)."""
@@ -299,7 +403,7 @@ def phase18(root: Path, seed: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True, help="checkout of the earlier commit")
+    ap.add_argument("--parent", type=Path, default=None, help="checkout of the earlier commit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=10,
                     help="timed rounds of old/new/new/old requests, and of train steps")
@@ -307,8 +411,12 @@ def main(argv=None) -> int:
                     help="the trace and the kernel sections only (no requests, no train steps)")
     ap.add_argument("--parallel", action="store_true",
                     help="instead: chip_smoke.py phase 18 of the parent and of this tree in turns")
+    ap.add_argument("--cudnn-cost", action="store_true",
+                    help="instead: this tree's float32 train step with cuDNN's default and deterministic algorithms")
     ap.add_argument("--phase18-of", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parent is None and not args.cudnn_cost and args.phase18_of is None:
+        ap.error("--parent is required (except with --cudnn-cost)")
     if args.phase18_of is not None:
         return phase18(args.phase18_of.resolve(), args.seed)
     if args.parallel:
@@ -327,6 +435,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.cudnn_cost:
+        cs.log(f"device: {smi}; kernels built in {build_all():.1f} s; TF32 off")
+        print(json.dumps({"device": smi, "cudnn_cost": cudnn_cost(args.seed, args.requests)}))
+        return 0
     cs.log(f"device: {smi}; parent {args.parent}; TF32 off")
     build_all()
     old_deform, old_mca, old_predictor = load_parent(args.parent.resolve())
@@ -343,6 +455,7 @@ def main(argv=None) -> int:
         rows += backward_ab(old_deform, old_mca, rng)
     else:
         cs.log("ab: the parent has no backward kernels; backward section skipped")
+    rows += point_sample_ab(parent_kernels, rng)
     torch.cuda.synchronize()
     e2e = steps = None
     if not args.kernels_only:
@@ -417,7 +530,8 @@ def trace(parent_kernels) -> dict:
 
     report = {}
     for label, mod in (("old", parent_kernels), ("new", K)):
-        for name in mod._SIGNATURES:
+        source_of = getattr(mod, "_source", lambda name: name)  # entry points sharing a source: one library
+        for name in dict.fromkeys(map(source_of, mod._SIGNATURES)):
             lib = mod._target(name)
             usage, sass = res_usage(lib), sass_counts(lib)
             for fn, res in usage.items():

@@ -1,16 +1,18 @@
 """Hand-written CUDA kernels for Hopper: build, load and count launches.
 
 Each kernel lives in `rgbdseg_torch/csrc/<name>.cu` behind a plain C
-interface (helpers shared by several sources in `csrc/*.cuh`). At first use
-`load(name)` compiles it with nvcc for `sm_90a` into a shared library under
-`<repo>/build/kernels/` (named by a hash of the source, the headers and the
-flags, so an edited source or header rebuilds) and binds it with ctypes.
-`build_all()` starts one nvcc per source, all together, and waits for them.
+interface (helpers shared by several sources in `csrc/*.cuh`); an entry point
+may share another's source (`_SOURCES`: the point-sampling backward lives in
+`point_sample.cu`). At first use `load(name)` compiles the source with nvcc
+for `sm_90a` into a shared library under `<repo>/build/kernels/` (named by a
+hash of the source, the headers and the flags, so an edited source or header
+rebuilds) and binds it with ctypes. `build_all()` starts one nvcc per source,
+all together, and waits for them.
 
-The kernel modules (`deformable`, `masked_attention`) each hold the plain
-PyTorch versions of their function and its gradient, the wrapper (a
-`torch.autograd.Function` whose forward and backward are kernels), and a source
-note. A wrapper takes the plain versions only for CPU tensors; for CUDA tensors
+The kernel modules (`deformable`, `masked_attention`, `point_sample`) each
+hold the plain PyTorch versions of their function and its gradient, the
+wrapper (a `torch.autograd.Function` whose forward and backward are kernels),
+and a source note. A wrapper takes the plain versions only for CPU tensors; for CUDA tensors
 it launches the kernel or raises. `LAUNCHES` counts kernel launches per entry
 point, the backward ones (`*_bwd`) apart from the forward ones: a plain integer
 each, bumped only where the kernel is launched (once per call, also where one
@@ -60,7 +62,11 @@ _SIGNATURES = {
         "rgbd_masked_cross_attention_bwd",
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
+    "point_sample": ("rgbd_point_sample", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "point_sample_bwd": ("rgbd_point_sample_bwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
+# Entry point -> its source's stem, where that is not its own name.
+_SOURCES = {"point_sample_bwd": "point_sample"}
 
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 FLOPS = {name: 0 for name in _SIGNATURES}
@@ -84,40 +90,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with nvcc at first use")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+def _source(name: str) -> str:
+    return _SOURCES.get(name, name)
+
+
+def _target(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    return BUILD_DIR / f"lib{source}-{tag}.so"
 
 
-def _start_build(name: str):
+def _start_build(source: str):
     """Start nvcc for one source; returns (process, tmp path, target) or None if built."""
-    target = _target(name)
+    target = _target(source)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 
 
-def _finish_build(name: str, job) -> None:
+def _finish_build(source: str, job) -> None:
     proc, tmp, target = job
     out, _ = proc.communicate()
-    BUILD_LOG[name] = out
+    BUILD_LOG[source] = out
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        raise RuntimeError(f"nvcc failed for {source}.cu (exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)
 
 
 def build_all() -> float:
     """Compile every kernel source in parallel; returns wall seconds."""
     t0 = time.perf_counter()
-    jobs = {name: _start_build(name) for name in _SIGNATURES}
-    for name, job in jobs.items():
+    jobs = {source: _start_build(source) for source in dict.fromkeys(map(_source, _SIGNATURES))}
+    for source, job in jobs.items():
         if job is not None:
-            _finish_build(name, job)
+            _finish_build(source, job)
     return time.perf_counter() - t0
 
 
@@ -164,10 +174,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    job = _start_build(name)
+    source = _source(name)
+    job = _start_build(source)
     if job is not None:
-        _finish_build(name, job)
-    lib = ctypes.CDLL(str(_target(name)))
+        _finish_build(source, job)
+    lib = ctypes.CDLL(str(_target(source)))
     fn_name, argtypes = _SIGNATURES[name]
     fn = getattr(lib, fn_name)
     fn.argtypes = argtypes

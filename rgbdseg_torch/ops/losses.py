@@ -11,9 +11,14 @@ cost of 0, which cannot change the real rows' assignment, and add no loss.
 Where the port differs from the JAX package, and why:
 - All layers' cost matrices go to the host in one copy and scipy solves them
   (`ops.matcher`), as the upstream criterion does.
-- Points are sampled with `F.grid_sample(align_corners=False, zeros)`, the
-  function the JAX package computes as tent products for the TPU; the gradient
-  reaches the masks only (the coordinates are drawn without one).
+- Each mask's own points (`sample_each_mask`, the counterpart of the JAX
+  `_sample_each_mask`) are sampled by `ops.kernels.point_sample`: on the card
+  a hand kernel whose gradient to the masks is summed in a fixed order, so a
+  train step repeats bit for bit, as the JAX package's tent products do; on
+  the CPU `F.grid_sample(align_corners=False, zeros)`. The gradient reaches
+  the masks only (the coordinates are drawn without one). The matcher's
+  points, shared by all masks and sampled without a gradient, stay
+  `F.grid_sample`, whose forward repeats.
 - Coordinates come from a `torch.Generator` through `_uniform`, which tests
   replace to feed both criteria the same points.
 - Under data parallelism (`parallel.mesh.active`) each rank scores its own
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..parallel.mesh import data_sum, global_draw
+from .kernels.point_sample import point_sample
 from .matcher import hungarian_batch
 
 LOSS_KEYS = ("loss_cross_entropy", "loss_mask", "loss_dice")
@@ -55,12 +61,7 @@ def _sample_masks_at_points(masks: torch.Tensor, coords: torch.Tensor) -> torch.
 def sample_each_mask(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """masks (B, N, H, W), coords (B, N, P, 2) (x, y) in [0, 1], one set per mask -> (B, N, P).
     Differentiable in the masks only."""
-    b, n, h, w = masks.shape
-    npts = coords.shape[2]
-    grid = (2.0 * coords.detach().to(masks.device, masks.dtype) - 1.0).reshape(b * n, 1, npts, 2)
-    out = F.grid_sample(masks.reshape(b * n, 1, h, w), grid, mode="bilinear", padding_mode="zeros",
-                        align_corners=False)
-    return out.reshape(b, n, npts)
+    return point_sample(masks, coords)
 
 
 def _bce_with_logits(logits, labels):

@@ -35,14 +35,15 @@ groups), for the checkpoints of `train/checkpoints.py`.
 Under tensor parallelism (`parallel.sharding.shard_model`) the optimizer is
 given the names of the sharded parameters and the model group. The replicated
 parameters' gradients are first averaged over the model group: every rank
-computes them whole, but float atomics (grid_sample's backward in the
-criterion) and cuDNN's backward sum in an order that changes from run to run
-(K1's backward no longer does: its d value is summed in a fixed order), so on the card
-the ranks' copies part by a last bit, and so would the replicated parameters
-after the update. The global norm then adds the sharded gradients' squares
-over the model group to the replicated ones' (counted once), so every rank
-clips by the full model's norm. Adam and the decay act element by element, on
-each rank's shard.
+computes them whole, and since every sum of the train step runs in a fixed
+order on the card (the hand kernels' backward, cuDNN's deterministic
+algorithms), the ranks' copies agree bit for bit (`chip_smoke.py` phase 18(c)
+prints it). The mean stays, as the guarantee that the replicated parameters
+stay equal whatever a rank's backward does; on equal copies over a group of
+two or four ranks it returns them exactly. The global norm then adds the
+sharded gradients' squares over the model group to the replicated ones'
+(counted once), so every rank clips by the full model's norm. Adam and the
+decay act element by element, on each rank's shard.
 """
 
 from __future__ import annotations

@@ -122,11 +122,16 @@ class TrainBatch(NamedTuple):
 
 def set_matmul_precision(precision: str) -> None:
     """float32 | bfloat16_3x | bfloat16 -> torch's float32 matmul precision, and
-    cuDNN's TF32 switch on for all but float32."""
+    cuDNN's TF32 switch on for all but float32. cuDNN also takes its
+    deterministic algorithms (and no benchmarking among them): a train step
+    repeats bit for bit from the same state, batch and generator, as the JAX
+    package's does."""
     if precision not in MATMUL_PRECISION:
         raise ValueError(f"matmul_precision {precision!r} is not one of {sorted(MATMUL_PRECISION)}")
     torch.set_float32_matmul_precision(MATMUL_PRECISION[precision])
     torch.backends.cudnn.allow_tf32 = precision != "float32"
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def unwrap(model: torch.nn.Module) -> torch.nn.Module:

@@ -243,7 +243,8 @@ def test_cuda_kernels_match_plain():
             atol=2e-2, rtol=2e-2,
         )
     torch.cuda.synchronize()
-    assert LAUNCHES == {"deformable": 5, "masked_attention": 6, "deformable_bwd": 0, "masked_attention_bwd": 0}
+    assert LAUNCHES == {"deformable": 5, "masked_attention": 6, "deformable_bwd": 0, "masked_attention_bwd": 0,
+                        "point_sample": 0, "point_sample_bwd": 0}
 
 
 @pytest.mark.cuda
