@@ -11,8 +11,9 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      one PyTorch library call's (CUDA events around a replayed CUDA graph of
      many calls), and its eager time per call from Python; the point-sampling
      kernel at the criterion's three samplings of a train step's prediction
-     layer (against F.grid_sample: bit for bit expected, the largest
-     difference printed). K1 is timed at
+     layer and on bunched points (against F.grid_sample: bit for bit, else
+     the phase fails), each with its per-kernel split and share of its
+     bound. K1 is timed at
      the in-model sampling geometry (each query samples 1..4 pixels from its
      reference point along its head's direction, uniform attention weights, as
      the seeded model has them): all levels in one launch, as an encoder layer
@@ -50,8 +51,10 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      the effect of its delta (rowsum(dO * O) against the JAX VJP's sum_k dP * P);
      and the point-sampling kernel's backward at the loss's sampling (batch 2,
      16 masks of 120x160, 12544 points) against aten's grid_sampler_2d_backward,
-     two launches with the same bits, its lattice keys and cell lists against
-     the plain versions, timed beside aten's backward;
+     two launches with the same bits, bit for bit the ordered plain model of
+     its sum (`point_sample_bwd_ordered_plain`), timed beside aten's backward;
+     on bunched points too (one mask's points all in one lattice cell, one's in
+     one band), held to the ordered model alone, timed;
   6. train: 3 optimizer steps (`train_step`) of the full-width 0.4.0 model with
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
      480x640 frames (stacks built as in phase 4) with up to 16 box instances
@@ -347,6 +350,27 @@ def eager_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) * 1e3 / iters
 
 
+def kernel_split(fn, n: int = 20) -> dict:
+    """Device ms per call of each kernel `fn` launches, from torch.profiler over n calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:48]:
+            e.self_device_time_total / n / 1e3 for e in sorted(events, key=lambda e: -e.self_device_time_total)}
+
+
+def _split_line(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()) or "no device events"
+
+
 def _timed(fn):
     """(fn(), wall ms) with the device synchronised on both sides."""
     import torch
@@ -623,21 +647,54 @@ def touched_cells(coords, h: int, w: int) -> int:
     return int(torch.unique(torch.cat(cells)).numel())
 
 
+def bunched_coords(rng, coords, h: int, w: int):
+    """The loss's points with bunched masks, drawn from `rng`: mask 0's points
+    all in one lattice cell (one list of P points), mask 1's all in one band
+    of 16 rows (more than the backward's shared memory holds), mask 2's half
+    in one cell; the rest as they were."""
+    import torch
+
+    npts = coords.shape[2]
+    c = coords.clone()
+    cell = (rng.randint(h // 4, 3 * h // 4), rng.randint(w // 4, 3 * w // 4))
+    c[0, 0] = torch.from_numpy(((np.array(cell[::-1]) + rng.uniform(0.5, 1.5, (npts, 2))) / np.array([w, h]))
+                               .astype(np.float32))
+    c[0, 1, :, 1] = torch.from_numpy(rng.uniform(32 / h, 48 / h, npts).astype(np.float32))
+    c[0, 2, : npts // 2] = torch.from_numpy(
+        ((np.array([w // 3, h // 3]) + rng.uniform(0.5, 1.5, (npts // 2, 2))) / np.array([w, h])).astype(np.float32))
+    return c.to(coords.device)
+
+
+def longest_list(coords, h: int, w: int) -> int:
+    """The most points that share one lattice cell of one mask."""
+    from rgbdseg_torch.ops.kernels.point_sample import lattice_keys_plain
+
+    keys = lattice_keys_plain(coords, h, w).reshape(-1, coords.shape[2])
+    keys = keys + (keys >= 0) * keys.new_tensor(range(keys.shape[0]))[:, None] * (h + 1) * (w + 1)
+    return int(keys[keys >= 0].unique(return_counts=True)[1].max()) if (keys >= 0).any() else 0
+
+
 def check_point_sample(rng, dev) -> list[dict]:
     """Phase 3, the point-sampling kernel (forward) against `F.grid_sample` at
-    the criterion's three samplings: largest difference (bit for bit
-    expected), device, eager, plain and library ms, and the bound."""
+    the criterion's three samplings and on the loss's points bunched: equal
+    bit for bit (else the phase fails); device, eager, plain and library ms,
+    the per-kernel split, the bound and its share."""
     import torch
     import torch.nn.functional as F
 
     from rgbdseg_torch.ops.kernels import point_sample as KP
 
     rows = []
-    for label, (masks, coords) in zip(("uncertainty", "loss", "labels"), point_sample_inputs(rng, dev)):
+    inputs = point_sample_inputs(rng, dev)
+    masks, coords = inputs[1]
+    bunched = (masks, bunched_coords(rng, coords, *masks.shape[2:]))
+    for label, (masks, coords) in zip(("uncertainty", "loss", "labels", "bunched"), inputs + [bunched]):
         b, n, h, w = masks.shape
         npts = coords.shape[2]
         got, want = KP.point_sample(masks, coords), KP.point_sample_plain(masks, coords)
         err = _check(f"point_sample {label}", got, want, POINT_RTOL * want.abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"point_sample {label}: not F.grid_sample's bits")
         grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
         img = masks.reshape(b * n, 1, h, w)
 
@@ -653,11 +710,13 @@ def check_point_sample(rng, dev) -> list[dict]:
                    ms=time_ms(lambda: KP.point_sample(masks, coords)),
                    eager_ms=eager_ms(lambda: KP.point_sample(masks, coords)),
                    plain_ms=time_ms(lambda: KP.point_sample_plain(masks, coords)), library_ms=time_ms(library),
-                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-        rows.append(row)
-        log(f"kernel point_sample {row['shape']}: equal to F.grid_sample bit for bit {torch.equal(got, want)}; "
-            f"ms {row['ms']:.4f} eager_ms {row['eager_ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-            f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by})")
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                   split=kernel_split(lambda: KP.point_sample(masks, coords)))
+        log(f"kernel point_sample {row['shape']}: equal to F.grid_sample bit for bit; ms {row['ms']:.4f} eager_ms "
+            f"{row['eager_ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}), {b_ms / row['ms']:.1%} of it; per kernel: {_split_line(row['split'])}")
+        if label != "bunched":  # the kernels line averages the main path's shapes only
+            rows.append(row)
     return rows
 
 
@@ -665,9 +724,11 @@ def check_point_sample_bwd(rng, dev) -> list[dict]:
     """Phase 5, the point-sampling kernel's backward through its autograd
     wrapper at the loss's sampling (the train phase's geometry): against aten's
     `grid_sampler_2d_backward` (the plain backward) within POINT_BWD_RTOL of the
-    largest gradient, two launches with the same bits (and two of aten's,
-    printed), the kernel's lattice keys and cell lists against the plain
-    versions; device, eager, plain and library ms, and the bound."""
+    largest gradient, against the ordered plain model of its sum bit for bit,
+    two launches with the same bits (and two of aten's, printed); device,
+    eager, plain and library ms, the per-kernel split, the bound and its share.
+    Then the same points bunched (`bunched_coords`): against the ordered model
+    bit for bit and twice the same bits, timed; aten's difference printed."""
     import torch
 
     from rgbdseg_torch.ops import kernels as K
@@ -693,22 +754,11 @@ def check_point_sample_bwd(rng, dev) -> list[dict]:
     err = _check_grads("point_sample_bwd", [got], [ref], POINT_BWD_RTOL)
     if not torch.equal(got, autograd()):
         raise AssertionError("point_sample_bwd: two launches give different bits")
-    grad, scratch = KP._launch_bwd_impl(coords, g, h, w)
-    cells = (h + 1) * (w + 1)
-    keys = KP.lattice_keys_plain(coords, h, w).reshape(b * n, npts)
-    starts, lists = KP.cell_lists_plain(keys, cells)
-    head = b * n * (cells + 1)
-    got_lists = scratch[KP.scratch_layout(b * n, npts, h, w)[1]:].long()
-    same_lists = torch.equal(scratch[:head].reshape(b * n, cells + 1).long(), starts) and torch.equal(
-        scratch[head:head + b * n * npts].reshape(b * n, npts).long(), keys) and all(
-        torch.equal(got_lists[i * npts:int(starts[i, -1])], lists[i * npts:int(starts[i, -1])]) for i in range(b * n))
-    if not (torch.equal(grad, got) and same_lists):
-        raise AssertionError(f"point_sample_bwd: the launch alone gives other bits, or its lists differ from the "
-                             f"plain ones ({same_lists})")
-    longest = int((starts[:, 1:] - starts[:, :-1])[:, :-1].max())
+    if not torch.equal(got, KP.point_sample_bwd_ordered_plain(coords, g, h, w)):
+        raise AssertionError("point_sample_bwd: not the bits of the ordered plain model")
     aten_repeats = torch.equal(ref, plain())
-    log(f"kernel point_sample_bwd: two launches give the same bits; keys and cell lists equal the plain ones "
-        f"(longest list {longest} points); aten's grid_sampler_2d_backward twice the same bits: {aten_repeats}")
+    log(f"kernel point_sample_bwd: two launches give the same bits, those of the ordered plain model (longest list "
+        f"{longest_list(coords, h, w)} points); aten's grid_sampler_2d_backward twice the same bits: {aten_repeats}")
     grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
     img, go = masks.reshape(b * n, 1, h, w), g.reshape(b * n, 1, 1, npts)
 
@@ -725,10 +775,25 @@ def check_point_sample_bwd(rng, dev) -> list[dict]:
     b_ms, b_by = bound_ms(nbytes, flops)
     row = dict(shape=f"loss: {b}x{n} masks {h}x{w}, P={npts}", err=err, ms=time_ms(kernel), eager_ms=eager_ms(kernel),
                plain_ms=time_ms(plain), library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-               flops=flops)
+               flops=flops, split=kernel_split(kernel))
     log(f"kernel point_sample_bwd {row['shape']}: ms {row['ms']:.4f} eager_ms {row['eager_ms']:.4f} plain_ms "
         f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} (aten grid_sampler_2d_backward) bound_ms "
-        f"{b_ms:.4f} ({b_by})")
+        f"{b_ms:.4f} ({b_by}), {b_ms / row['ms']:.1%} of it; per kernel: {_split_line(row['split'])}")
+
+    bunched = bunched_coords(rng, coords, h, w)
+    grid_b = (2.0 * bunched - 1.0).reshape(b * n, 1, npts, 2)
+    got_b = KP._launch_bwd(bunched, g, h, w)
+    model, model_ms = _timed(lambda: KP.point_sample_bwd_ordered_plain(bunched, g, h, w))
+    if not (torch.equal(got_b, model) and torch.equal(got_b, KP._launch_bwd(bunched, g, h, w))):
+        raise AssertionError("point_sample_bwd bunched: not the ordered model's bits, or two launches differ")
+    ref_b = KP.point_sample_plain_bwd(masks, bunched, g)
+    ms_b = time_ms(lambda: KP._launch_bwd(bunched, g, h, w), iters=5)
+    lib_b = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(go, img, grid_b, 0, 0, False, [True, False]),
+                    iters=5)
+    log(f"kernel point_sample_bwd bunched (longest list {longest_list(bunched, h, w)} points): the ordered model's "
+        f"bits, twice the same; ms {ms_b:.4f}, aten's {lib_b:.4f}; against aten {(got_b - ref_b).abs().max().item():.3e}"
+        f" of max {ref_b.abs().max().item():.3e} (not held: long lists summed in order); the model took "
+        f"{model_ms / 1e3:.1f} s; per kernel: {_split_line(kernel_split(lambda: KP._launch_bwd(bunched, g, h, w), 3))}")
     return [row]
 
 

@@ -28,11 +28,14 @@ has what it needs (else it says so and is skipped):
   (K1's d value apart: the parent adds it with float atomics), and whether two
   launches of this tree's K1 backward do; each launch's per-kernel split, the
   parent's zeroing and bf16 cast of d value counted on its side.
-- point sampling: the criterion's gradient to the mask logits at the train
-  phase's geometry, as the parent computes it (aten's
-  `grid_sampler_2d_backward` where it has no point-sampling kernel) and as
-  this tree's kernel does, each held against the plain backward; whether two
-  launches of each give the same bits; each launch's per-kernel split.
+- point sampling: the criterion's forward at its three samplings and its
+  gradient to the mask logits at the train phase's geometry, as the parent
+  computes them (`F.grid_sample` and aten's `grid_sampler_2d_backward` where
+  it has no point-sampling kernels) and as this tree's kernels do, each held
+  against the plain version (the backward also against the ordered plain
+  model, bit for bit); whether two launches of each give the same bits and,
+  where the parent has the kernels, whether old and new do (they must: the
+  same arithmetic and summation order); each launch's per-kernel split.
 - requests (not with --kernels-only): both commits' full-width 0.4.0 models,
   with the same seeded weights, serve the same 480x640 frame in turns old,
   new, new, old (`--requests` rounds): median request ms of each, and their
@@ -137,7 +140,7 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
             cs.log(f"ab K1-bwd {geometry} {dtype}: d loc and d weights old == new bit for bit: {same}; new: two "
                    f"launches give the same bits (d value, d loc, d weights); d value {outs['new'][0].dtype} "
                    f"from the kernels")
-            split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
+            split = {label: cs.kernel_split(fn) for label, fn in (("old", old), ("new", new))}
             for label, ms in split.items():
                 cs.log(f"ab K1-bwd {geometry} {dtype} {label} per kernel: "
                        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
@@ -166,7 +169,7 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
             same = all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"]))
             cs.log(f"ab K3-bwd K={nk} {dtype}: old == new bit for bit: {same}; dtypes old "
                    f"{[str(t.dtype) for t in outs['old']]}, new {[str(t.dtype) for t in outs['new']]}")
-            split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
+            split = {label: cs.kernel_split(fn) for label, fn in (("old", old), ("new", new))}
             for label, ms in split.items():
                 cs.log(f"ab K3-bwd K={nk} {dtype} {label} per kernel: "
                        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
@@ -177,49 +180,93 @@ def backward_ab(old_deform, old_mca, rng) -> list[dict]:
 
 
 def point_sample_ab(parent_kernels, rng) -> list[dict]:
-    """The point-sampling section: the criterion's gradient to the mask logits
-    at the train phase's geometry (`chip_smoke.point_sample_inputs`), as the
-    parent computes it where it has no point-sampling kernel (aten's
-    `grid_sampler_2d_backward`, float atomics) and as this tree's kernel does,
-    each held against the plain backward first; whether two launches of each
-    give the same bits; the per-kernel split."""
+    """The point-sampling section at the train phase's geometry
+    (`chip_smoke.point_sample_inputs`): the forward at the criterion's three
+    samplings and the gradient to the mask logits at the loss's, as the parent
+    computes them (`F.grid_sample` and aten's `grid_sampler_2d_backward`, float
+    atomics, where it has no point-sampling kernel) and as this tree's kernels
+    do, each held against the plain version first and this tree's backward
+    against the ordered plain model bit for bit; whether two launches of each
+    give the same bits and, where the parent has the kernels (the same
+    arithmetic and summation order), that old and new do; the per-kernel
+    split; old, new, new, old timings."""
     import torch
+    import torch.nn.functional as F
 
     from rgbdseg_torch.ops.kernels import point_sample as KP
 
-    masks, coords = cs.point_sample_inputs(rng, torch.device("cuda"))[1]
+    inputs = cs.point_sample_inputs(rng, torch.device("cuda"))
+    old_mod = None
+    if "point_sample_bwd" in parent_kernels._SIGNATURES:
+        old_mod = importlib.import_module("parent_rgbdseg_torch.ops.kernels.point_sample")
+    rows = []
+    for label, (masks, coords) in zip(("uncertainty", "loss", "labels"), inputs):
+        b, n, h, w = masks.shape
+        npts = coords.shape[2]
+        grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
+        img = masks.reshape(b * n, 1, h, w)
+
+        def old():
+            if old_mod is not None:
+                return old_mod._launch(masks, coords)
+            return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=False).reshape(
+                b, n, npts)
+
+        def new():
+            return KP._launch(masks, coords)
+
+        ref = KP.point_sample_plain(masks, coords)
+        same = _same_bits(f"point_sample {label}", old, new, ref, cs.POINT_RTOL * ref.abs().max().item(),
+                          old_mod is not None)
+        rows.append(dict(kernel="point_sample", dtype="float32", same_bits=same, **_split_ab(label, old, new),
+                         **ab(f"point_sample {label}: {b}x{n} masks {h}x{w}, P={npts}", old, new)))
+    masks, coords = inputs[1]
     b, n, npts, _ = coords.shape
     h, w = masks.shape[2:]
     g = torch.from_numpy(rng.randn(b, n, npts).astype(np.float32)).cuda()
-    if "point_sample_bwd" in parent_kernels._SIGNATURES:
-        old_mod = importlib.import_module("parent_rgbdseg_torch.ops.kernels.point_sample")
+    grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
+    img, go = masks.reshape(b * n, 1, h, w), g.reshape(b * n, 1, 1, npts)
 
-        def old():
+    def old():
+        if old_mod is not None:
             return old_mod._launch_bwd(coords, g, h, w)
-    else:
-        grid = (2.0 * coords - 1.0).reshape(b * n, 1, npts, 2)
-        img, go = masks.reshape(b * n, 1, h, w), g.reshape(b * n, 1, 1, npts)
-
-        def old():
-            return torch.ops.aten.grid_sampler_2d_backward(go, img, grid, 0, 0, False, [True, False])[0].reshape(
-                b, n, h, w)
+        return torch.ops.aten.grid_sampler_2d_backward(go, img, grid, 0, 0, False, [True, False])[0].reshape(
+            b, n, h, w)
 
     def new():
         return KP._launch_bwd(coords, g, h, w)
 
     ref = KP.point_sample_plain_bwd(masks, coords, g)
-    same = {}
-    for label, fn in (("old", old), ("new", new)):
-        cs._check_grads(f"ab point_sample_bwd {label}", [fn()], [ref], cs.POINT_BWD_RTOL)
-        same[label] = torch.equal(fn(), fn())
-    if not same["new"]:
-        raise AssertionError("point_sample_bwd: two launches give different bits")
-    cs.log(f"ab point_sample_bwd: two launches give the same bits: old {same['old']}, new {same['new']}")
-    split = {label: kernel_split(fn) for label, fn in (("old", old), ("new", new))}
-    for label, ms in split.items():
-        cs.log(f"ab point_sample_bwd {label} per kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
-    return [dict(kernel="point_sample_bwd", dtype="float32", same_bits=same, kernels_ms=split,
-                 **ab(f"point_sample_bwd {b}x{n} masks {h}x{w}, P={npts}", old, new))]
+    same = _same_bits("point_sample_bwd", old, new, ref, cs.POINT_BWD_RTOL * ref.abs().max().item(),
+                      old_mod is not None)
+    if not torch.equal(new(), KP.point_sample_bwd_ordered_plain(coords, g, h, w)):
+        raise AssertionError("point_sample_bwd: not the bits of the ordered plain model")
+    cs.log("ab point_sample_bwd: new equals the ordered plain model bit for bit")
+    rows.append(dict(kernel="point_sample_bwd", dtype="float32", same_bits=same, **_split_ab("bwd", old, new),
+                     **ab(f"point_sample_bwd {b}x{n} masks {h}x{w}, P={npts}", old, new)))
+    return rows
+
+
+def _same_bits(label: str, old, new, ref, tol: float, same_order: bool) -> dict:
+    """Both within tol of the plain version; whether old and new, and two
+    launches of each, give the same bits. This tree's launches must repeat,
+    and with `same_order` (the same arithmetic and order) equal the parent's."""
+    import torch
+
+    _agree(label, old, new, ref, tol)
+    same = {"old_new": torch.equal(old(), new()), "old": torch.equal(old(), old()), "new": torch.equal(new(), new())}
+    cs.log(f"ab {label}: old == new bit for bit {same['old_new']}; two launches the same bits: old {same['old']}, "
+           f"new {same['new']}")
+    if not same["new"] or (same_order and not same["old_new"]):
+        raise AssertionError(f"{label}: {same}")
+    return same
+
+
+def _split_ab(label: str, old, new) -> dict:
+    split = {k: cs.kernel_split(fn) for k, fn in (("old", old), ("new", new))}
+    for k, ms in split.items():
+        cs.log(f"ab point_sample {label} {k} per kernel: {cs._split_line(ms)}")
+    return {"kernels_ms": split}
 
 
 def requests_ab(old_predictor_mod, seed: int, rng, n: int) -> dict:
@@ -290,23 +337,6 @@ def train_ab(seed: int, rng, n: int) -> dict:
     cs.log(f"ab train steps ({2 * n} each, turns old/new/new/old): median old {med['old']:.2f} ms, "
            f"new {med['new']:.2f} ms; min old {min(times['old']):.2f}, new {min(times['new']):.2f}")
     return {"median_ms": med, "ms": times}
-
-
-def kernel_split(fn, n: int = 20) -> dict:
-    """Device ms per call of each kernel `fn` launches, from torch.profiler over n calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:48]:
-            e.self_device_time_total / n / 1e3 for e in sorted(events, key=lambda e: -e.self_device_time_total)}
 
 
 def ab(label: str, old, new, iters: int = 50) -> dict:

@@ -63,7 +63,7 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     ),
     "point_sample": ("rgbd_point_sample", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    "point_sample_bwd": ("rgbd_point_sample_bwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "point_sample_bwd": ("rgbd_point_sample_bwd", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 # Entry point -> its source's stem, where that is not its own name.
 _SOURCES = {"point_sample_bwd": "point_sample"}

@@ -11,12 +11,14 @@ library call has a deterministic backward for it: aten's
 `grid_sampler_2d_backward` on CUDA adds with float atomics (and raises under
 `torch.use_deterministic_algorithms(True)`). The CUDA source
 (`rgbdseg_torch/csrc/point_sample.cu`) samples as aten's `F.grid_sample` does
-(forward: one thread per point, aten's arithmetic and corner order), and sums
-the gradient without float atomics: each point is keyed by its footprint's
-top-left cell on the (H+1) x (W+1) lattice, a counting sort lists each
+(forward: aten's arithmetic and corner order, 4 points a thread), and sums
+the gradient without float atomics in one launch: each point is keyed by its
+footprint's top-left cell on the (H+1) x (W+1) lattice; a block per band of
+mask rows keeps, in shared memory, the points that touch its band, lists each
 lattice cell's points in ascending order, and one thread per mask cell adds
 the <= 4 lists that touch it in a fixed order and writes its cell once, so
-two launches give the same bits. The forward and the backward count their
+two launches give the same bits. `point_sample_bwd_ordered_plain` is that
+sum emulated exactly, on any device. The forward and the backward count their
 launches apart (`point_sample`, `point_sample_bwd`).
 
 `point_sample(masks, coords)`: masks (B, N, H, W) float32, coords (B, N, P, 2)
@@ -50,16 +52,20 @@ def point_sample_plain_bwd(masks: torch.Tensor, coords: torch.Tensor, grad_out: 
         return torch.autograd.grad(point_sample_plain(leaf, coords), leaf, grad_out)[0]
 
 
+def source_indices_plain(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The source index (ix, iy) of each point, float32, as the kernels round
+    it: ((2c - 1 + 1) * size - 1) / 2, the product and difference exact in
+    float64 (the kernel's fma), then one rounding to float32."""
+    g = 2.0 * coords.float() - 1.0
+    size = torch.tensor([w, h], dtype=torch.float64, device=coords.device)
+    return ((g + 1.0).double() * size - 1.0).float() / 2
+
+
 def lattice_keys_plain(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Each point's footprint cell on the (h+1) x (w+1) lattice, as the kernel
     keys it ((floor(iy) + 1) * (w + 1) + floor(ix) + 1), or -1 where no corner
-    lies in the map. The source index ((2c - 1 + 1) * size - 1) / 2 is rounded
-    as the kernel's fma rounds it: the product and difference exact in float64,
-    then one rounding to float32."""
-    c = coords.float()
-    g = 2.0 * c - 1.0
-    size = torch.tensor([w, h], dtype=torch.float64, device=c.device)
-    src = (((g + 1.0).double() * size - 1.0).float() / 2).floor()
+    lies in the map."""
+    src = source_indices_plain(coords, h, w).floor()
     fx, fy = src[..., 0], src[..., 1]
     touches = (fx >= -1) & (fx <= w - 1) & (fy >= -1) & (fy <= h - 1)
     key = (fy + 1) * (w + 1) + fx + 1
@@ -78,6 +84,42 @@ def cell_lists_plain(keys: torch.Tensor, cells: int) -> tuple[torch.Tensor, torc
     counts.scatter_add_(1, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 1) - counts + torch.arange(m, device=keys.device)[:, None] * npts
     return starts, order.reshape(-1)
+
+
+def point_sample_bwd_ordered_plain(coords: torch.Tensor, grad_out: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The backward kernel's float32 sum, emulated exactly on any device:
+    d masks (B, N, h, w) from coords (B, N, P, 2) and grad_out (B, N, P). Each
+    mask cell adds, from 0, the lists of the lattice cells of which it is the
+    se, sw, ne and nw corner (`lattice_keys_plain`, `cell_lists_plain`), in
+    that order, each list in ascending point order; a term is (wx * wy) * g,
+    each product rounded to float32 as the kernel rounds it. All cells at
+    once, one list rank at a time."""
+    b, n, npts, _ = coords.shape
+    m, dev = b * n, coords.device
+    src = source_indices_plain(coords, h, w).reshape(m * npts, 2)
+    ix, iy = src[:, 0], src[:, 1]
+    x0, y0 = ix.floor(), iy.floor()
+    g = grad_out.detach().to(dev, torch.float32).reshape(m * npts)
+    wx = ((x0 + 1) - ix, ix - x0)  # the point's west, east column
+    wy = ((y0 + 1) - iy, iy - y0)  # its north, south row
+    lattice = (h + 1) * (w + 1)
+    starts, lists = cell_lists_plain(lattice_keys_plain(coords, h, w).reshape(m, npts), lattice)
+    lists = lists + torch.arange(m, device=dev).repeat_interleave(npts) * npts  # entries -> flat point index
+    cell = torch.arange(m * h * w, device=dev)
+    mask, y, x = cell // (h * w), cell // w % h, cell % w
+    acc = torch.zeros(m * h * w, dtype=torch.float32, device=dev)
+    for k in range(4):  # this cell as the se, sw, ne, nw corner of lattice cell (y + k // 2, x + k % 2)
+        c = (y + k // 2) * (w + 1) + x + k % 2
+        first = starts[mask, c]
+        length = starts[mask, c + 1] - first
+        order = torch.argsort(length, descending=True, stable=True)
+        active = torch.bincount(length, minlength=1).flip(0).cumsum(0).flip(0).tolist()  # cells with >= r entries
+        for r in range(1, len(active)):
+            idx = order[: active[r]]
+            q = lists[first[idx] + r - 1]
+            term = (wx[1 - k % 2][q] * wy[1 - k // 2][q]) * g[q]
+            acc[idx] = acc[idx] + term
+    return acc.reshape(b, n, h, w)
 
 
 def _check_launch(coords: torch.Tensor, b: int, n: int) -> None:
@@ -100,15 +142,8 @@ def _launch(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scratch_layout(bn: int, npts: int, h: int, w: int) -> tuple[int, int]:
-    """(int32 entries of the backward's scratch, where its lists begin): per
-    mask (h+1)(w+1) + 1 starts, then keys, slots and lists of bn * npts each."""
-    starts = bn * ((h + 1) * (w + 1) + 1)
-    return starts + 3 * bn * npts, starts + 2 * bn * npts
-
-
-def _launch_bwd_impl(coords: torch.Tensor, grad_out: torch.Tensor, h: int, w: int):
-    """The backward kernels: (d masks (B, N, H, W) float32, the int32 scratch)."""
+def _launch_bwd(coords: torch.Tensor, grad_out: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The backward kernel: d masks (B, N, H, W) float32."""
     b, n, npts, _ = coords.shape
     _check_launch(coords, b, n)
     grad_out = grad_out.float().contiguous()
@@ -116,14 +151,9 @@ def _launch_bwd_impl(coords: torch.Tensor, grad_out: torch.Tensor, h: int, w: in
     if grad_out.shape != (b, n, npts):
         raise ValueError(f"grad_out has shape {tuple(grad_out.shape)}; expected ({b}, {n}, {npts})")
     grad = torch.empty(b, n, h, w, dtype=torch.float32, device=coords.device)
-    scratch = torch.empty(scratch_layout(b * n, npts, h, w)[0], dtype=torch.int32, device=coords.device)
-    launch("point_sample_bwd", coords.data_ptr(), grad_out.data_ptr(), grad.data_ptr(), scratch.data_ptr(),
-           b * n, npts, h, w, flops=8 * b * n * npts)  # 4 corner weights and 4 multiply-adds per point
-    return grad, scratch
-
-
-def _launch_bwd(coords: torch.Tensor, grad_out: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    return _launch_bwd_impl(coords, grad_out, h, w)[0]
+    launch("point_sample_bwd", coords.data_ptr(), grad_out.data_ptr(), grad.data_ptr(), b * n, npts, h, w,
+           flops=8 * b * n * npts)  # 4 corner weights and 4 multiply-adds per point
+    return grad
 
 
 class PointSample(torch.autograd.Function):

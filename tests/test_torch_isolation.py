@@ -45,7 +45,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rgbdseg_tpu", "cv2", "P
              "transformers"}
 PORT_FILES = sorted((REPO / "rgbdseg_torch").rglob("*.py")) + [
     REPO / name for name in ("chip_smoke.py", "kernel_ab.py", "finetune_torch.py", "predict_torch.py",
-                             "bench_torch.py")]
+                             "bench_torch.py", "point_sample_split.py")]
 
 
 def _nodes(tree, in_functions: bool = True):
