@@ -1,0 +1,7 @@
+"""mfu.eval: the traced stretch's share of the card's dense peak, by the reference's FLOPs."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.mfu(run)
