@@ -1,0 +1,8 @@
+"""idle_gc_ms.eval: ms per batch in which the card waits on Python's cyclic garbage collector: the
+idle time under the program's `host.gc` span."""
+
+from benchmark import program
+
+
+def read(run):
+    return program.idle_ms(run, "host.gc")

@@ -59,7 +59,7 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      drop path 0.3, dropout and batch-statistics BatchNorm, on 2 synthetic
      480x640 frames (stacks built as in phase 4) with up to 16 box instances
      each, f32 with TF32 off; per step the
-     step time, the matcher's host time, loss, gradient norm, peak device memory
+     step time, loss, gradient norm, peak device memory
      and the launches, which must be 6 K1 and 9 K3 forward and backward each
      and 30 point samplings forward and 10 backward (3 and 1 per prediction
      layer); the kernels' gradients must reach value_proj, sampling_offsets,
@@ -1301,7 +1301,6 @@ def run_train(seed: int, rng, profile: bool = False):
 
     from rgbdseg_torch.config import ModelConfig
     from rgbdseg_torch.ops import kernels as K
-    from rgbdseg_torch.ops import matcher
     from rgbdseg_torch.train.arguments import TrainingArguments
     from rgbdseg_torch.train.trainer import build_training, train_step
 
@@ -1328,8 +1327,7 @@ def run_train(seed: int, rng, profile: bool = False):
         (loss, per_layer, gnorm), ms = _timed(lambda: train_step(model, opt, batch, gen))
         delta = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         loss, gnorm = loss.item(), gnorm.item()
-        log(f"train step {step}: {ms:.2f} ms, matcher host {matcher.STATS['solve_ms']:.2f} ms solve + "
-            f"{matcher.STATS['copy_ms']:.2f} ms copy (waits for the forward), loss {loss:.6f}, grad norm "
+        log(f"train step {step}: {ms:.2f} ms, loss {loss:.6f}, grad norm "
             f"{gnorm:.6f}, final-layer losses {[round(v[-1].item(), 5) for v in per_layer.values()]}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {delta}")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):

@@ -32,6 +32,7 @@ from torch import nn
 from .. import versions as V
 from ..config import ModelConfig
 from ..ops.normals import surface_normals_intrinsics
+from ..utils.trace import span
 from .fusion import (
     DepthGradientInjection,
     DepthGradientInjectionResidual,
@@ -117,37 +118,40 @@ class PixelLevelModule(nn.Module):
         cfg, spec, fusion = self.cfg, self.spec, self.fusion
         if pixel_values.shape[-1] != spec.total:
             raise ValueError(f"version {cfg.version} expects {spec.total} channels, got {pixel_values.shape[-1]}")
-        color_maps = list(self.encoder(_ch(pixel_values, spec, "rgb"), generator))
-        depth_maps = None
-        if fusion.dual_backbone:
-            depth_maps = list(self.depth_encoder(_ch(pixel_values, spec, "depth"), generator))
+        with span("model.backbone"):
+            color_maps = list(self.encoder(_ch(pixel_values, spec, "rgb"), generator))
+            depth_maps = None
+            if fusion.dual_backbone:
+                depth_maps = list(self.depth_encoder(_ch(pixel_values, spec, "depth"), generator))
 
-        ratio = None
-        if fusion.dsam and fusion.ratio == "fixed":
-            ratio = torch.full((pixel_values.shape[0],), cfg.dsam_default_ratio, dtype=torch.float32,
-                               device=pixel_values.device)
-        elif fusion.dsam and fusion.ratio == "backbone":
-            ratio = self.ratio_predictor(depth_maps)[:, 0]
-        elif fusion.dsam and fusion.ratio == "enhanced":
-            ratio = self.ratio_predictor(_ch(pixel_values, spec, "depth"), generator)[:, 0]
+        with span("model.fusion"):
+            ratio = None
+            if fusion.dsam and fusion.ratio == "fixed":
+                ratio = torch.full((pixel_values.shape[0],), cfg.dsam_default_ratio, dtype=torch.float32,
+                                   device=pixel_values.device)
+            elif fusion.dsam and fusion.ratio == "backbone":
+                ratio = self.ratio_predictor(depth_maps)[:, 0]
+            elif fusion.dsam and fusion.ratio == "enhanced":
+                ratio = self.ratio_predictor(_ch(pixel_values, spec, "depth"), generator)[:, 0]
 
-        if fusion.two_branch_sum:
-            # 0.4.0: both branches on detached copies of the backbone maps, summed.
-            detached = [m.detach() for m in color_maps]
-            branch1 = self._dsam(list(detached), pixel_values, ratio)
-            branch2 = self._dggm(list(detached), pixel_values)
-            fused_maps = [a + b for a, b in zip(branch1, branch2)]
-        else:
-            fused_maps = color_maps
-            if fusion.dsam:
-                fused_maps = self._dsam(fused_maps, pixel_values, ratio)
-            if fusion.dggm is not None:
-                fused_maps = self._dggm(fused_maps, pixel_values)
-            if fusion.feature_fuser:
-                fused_maps = self.feature_fuser(fused_maps, depth_maps)
-        # Keep the pixel decoder in the backbone's dtype (the DSAM masks are f32).
-        fused_maps = [m.to(color_maps[0].dtype) for m in fused_maps]
-        return self.pixel_decoder(fused_maps)
+            if fusion.two_branch_sum:
+                # 0.4.0: both branches on detached copies of the backbone maps, summed.
+                detached = [m.detach() for m in color_maps]
+                branch1 = self._dsam(list(detached), pixel_values, ratio)
+                branch2 = self._dggm(list(detached), pixel_values)
+                fused_maps = [a + b for a, b in zip(branch1, branch2)]
+            else:
+                fused_maps = color_maps
+                if fusion.dsam:
+                    fused_maps = self._dsam(fused_maps, pixel_values, ratio)
+                if fusion.dggm is not None:
+                    fused_maps = self._dggm(fused_maps, pixel_values)
+                if fusion.feature_fuser:
+                    fused_maps = self.feature_fuser(fused_maps, depth_maps)
+            # Keep the pixel decoder in the backbone's dtype (the DSAM masks are f32).
+            fused_maps = [m.to(color_maps[0].dtype) for m in fused_maps]
+        with span("model.pixel_decoder"):
+            return self.pixel_decoder(fused_maps)
 
 
 def standard_layout(x: torch.Tensor) -> torch.Tensor:
@@ -183,7 +187,8 @@ class Mask2FormerRGBD(nn.Module):
 
     def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None) -> ModelOutputs:
         mask_features, multi_scale = self.pixel_level_module(standard_layout(pixel_values), generator)
-        class_logits, mask_logits = self.transformer_module(multi_scale, mask_features)
+        with span("model.decoder"):
+            class_logits, mask_logits = self.transformer_module(multi_scale, mask_features)
         return ModelOutputs(
             class_queries_logits=class_logits[-1],
             masks_queries_logits=mask_logits[-1],

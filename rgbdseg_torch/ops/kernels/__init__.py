@@ -19,7 +19,10 @@ each, bumped only where the kernel is launched (once per call, also where one
 call is two launches, as K3's split and combine are). `FLOPS` sums, per
 entry point, the floating-point operations of the launches' dense formulas
 (every sample and every key counted), for `total_flos`, which torch's
-FlopCounterMode cannot see in a ctypes launch.
+FlopCounterMode cannot see in a ctypes launch. Both are groups of the port's
+counter registry (`utils/trace.py`, as `kernels.LAUNCHES` and
+`kernels.FLOPS`), whose spans `op.<kernel>` and `op.<kernel>_bwd` the
+wrappers open around each call and each backward.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ...utils.trace import counters
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -68,8 +73,8 @@ _SIGNATURES = {
 # Entry point -> its source's stem, where that is not its own name.
 _SOURCES = {"point_sample_bwd": "point_sample"}
 
-LAUNCHES = {name: 0 for name in _SIGNATURES}
-FLOPS = {name: 0 for name in _SIGNATURES}
+LAUNCHES = counters("kernels.LAUNCHES", _SIGNATURES)
+FLOPS = counters("kernels.FLOPS", _SIGNATURES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}

@@ -55,6 +55,7 @@ import ctypes
 
 import torch
 
+from ...utils.trace import span
 from . import check_cuda_tensor, launch
 
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx)
@@ -335,6 +336,7 @@ class DeformSampleLevels(torch.autograd.Function):
         return _launch(value, locations, weights, spatial_shapes, _level_starts(spatial_shapes), normalized=True)
 
     @staticmethod
+    @span("op.k1_bwd")
     def backward(ctx, grad_out):
         value, locations, weights = ctx.saved_tensors
         shapes = ctx.spatial_shapes
@@ -359,6 +361,7 @@ class DeformSampleLevel(torch.autograd.Function):
         return _launch(value, loc, aw6, [(h, w)], [0], normalized=False).reshape(gx.shape[0], gx.shape[1], -1)
 
     @staticmethod
+    @span("op.k1_bwd")
     def backward(ctx, grad_out):
         gx, gy, aw, v = ctx.saved_tensors
         h, w = ctx.hw
@@ -382,12 +385,14 @@ def _one_level(gx, gy, aw, v, h, w):
     return v.unsqueeze(2), loc, aw.contiguous().reshape(bh, l, 1, 1, npts)
 
 
+@span("op.k1")
 def deform_sample_levels(value, spatial_shapes, locations, weights) -> torch.Tensor:
     """K1 wrapper: the plain versions for CPU tensors, one CUDA launch (forward
     and backward each) for CUDA ones."""
     return DeformSampleLevels.apply(value, locations, weights, tuple(map(tuple, spatial_shapes)))
 
 
+@span("op.k1")
 def deform_sample_level(gx, gy, aw, v, h: int, w: int) -> torch.Tensor:
     """K1 for one level: the plain versions for CPU tensors, a one-level CUDA
     launch (forward and backward each) for CUDA ones."""

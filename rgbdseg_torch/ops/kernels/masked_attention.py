@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from ...utils.trace import span
 from . import check_cuda_tensor, launch
 
 NEG_INF = -1e9
@@ -147,11 +148,13 @@ class MaskedCrossAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("op.k3_bwd")
     def backward(ctx, grad_out):
         dq, dk, dv = _launch_bwd(*ctx.saved_tensors, grad_out)
         return dq, dk, dv, None, None
 
 
+@span("op.k3")
 def masked_cross_attention(q, k, v, mask_logits, all_blocked) -> torch.Tensor:
     """K3 wrapper: the plain version (and its autograd) for CPU tensors, the
     CUDA kernels forward and backward for CUDA ones."""

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...utils.trace import span
 from . import check_cuda_tensor, launch
 
 
@@ -166,11 +167,13 @@ class PointSample(torch.autograd.Function):
         return _launch(masks, coords)
 
     @staticmethod
+    @span("op.ps_bwd")
     def backward(ctx, grad_out):
         (coords,) = ctx.saved_tensors
         return _launch_bwd(coords, grad_out, *ctx.hw), None
 
 
+@span("op.ps")
 def point_sample(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """The wrapper: the plain version (and its autograd) for CPU tensors, the
     CUDA kernels forward and backward for CUDA ones."""

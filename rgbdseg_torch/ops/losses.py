@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..parallel.mesh import data_sum, global_draw
+from ..utils.trace import span
 from .kernels.point_sample import point_sample
 from .matcher import hungarian_batch
 
@@ -151,6 +152,7 @@ def layer_losses(cfg: ModelConfig, class_logits, mask_logits, target_masks, targ
     return {"loss_cross_entropy": loss_ce, "loss_mask": loss_mask, "loss_dice": loss_dice}
 
 
+@span("criterion")
 def mask2former_loss(cfg: ModelConfig, outputs, target_masks, target_classes, target_valid, generator):
     """The full criterion: (total, per-layer losses). The per-layer dict maps each
     loss to a (num_layers,) tensor, ordered [aux_0 ... aux_{L-2}, final] and

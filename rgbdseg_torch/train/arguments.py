@@ -81,7 +81,8 @@ class TrainingArguments:
     overwrite_output_dir: bool = False
     num_devices: Optional[int] = None  # total devices (default: all)
     model_parallel_size: int = 1  # tensor-parallel width; 1 = data parallelism only
-    # profiler trace of training steps [profile_start_step, profile_stop_step)
+    # profiler trace of training steps [profile_start_step, profile_stop_step), written to
+    # output_dir/profile/trace.json; it carries the port's `rgbdseg.*` spans (utils/trace.py)
     profile_start_step: Optional[int] = None
     profile_stop_step: Optional[int] = None
     # upload output_dir to the HF Hub after training

@@ -15,18 +15,27 @@ image of the batch evaluates at one size and RGBDSEG_EVAL_DEVICE_STATS is not
 through a queue of RGBDSEG_EVAL_PIPELINE_DEPTH (default 2) batches whose copies
 are started at dispatch and read later. The host path moves the kept binary
 masks and counts on the host (`MeanAveragePrecision.update`).
+
+`compute` adds its host seconds and the images it scored to the counters
+`map.compute_s` and `map.images` (`utils/trace.py`); `update`, the drain of a
+deferred batch, `flush` and `compute` are the spans `eval.update`,
+`eval.drain`, `eval.flush` and `eval.compute`.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..inference.postprocess import _resize_nearest, eval_stats, post_process_instance_segmentation
+from ..utils.trace import counters, span
 from .map_metric import MeanAveragePrecision
+
+MAP = counters("map", ("compute_s", "images"))
 
 
 class Evaluator:
@@ -43,7 +52,9 @@ class Evaluator:
         # read once, here (0 = drain at once).
         self._pending: collections.deque = collections.deque()
         self._pending_depth = max(0, int(os.environ.get("RGBDSEG_EVAL_PIPELINE_DEPTH", "2")))
+        self._images = 0  # images fed to the metric since its last reset
 
+    @span("eval.update")
     def update(self, class_logits: torch.Tensor, mask_logits: torch.Tensor, batch, target_sizes=None):
         """One batch: logits (B, Q, L+1) and (B, Q, h, w) on any device, and its
         `data.pipeline.Batch` (numpy)."""
@@ -78,6 +89,7 @@ class Evaluator:
                 "masks": _resize_nearest(gt_masks, target_sizes[i]).numpy(),
             })
         self.metric.update(preds, targets)
+        self._images += len(preds)
 
     def _dispatch_stats(self, class_logits, mask_logits, gt_packed, valid, target_hw, gt_hw):
         """Queue `eval_stats` on the logits' device and start the copies of its
@@ -95,6 +107,7 @@ class Evaluator:
         return host, done
 
     @staticmethod
+    @span("eval.drain")
     def _materialize_stats(outs, done=None):
         if done is not None:
             done.synchronize()
@@ -125,6 +138,7 @@ class Evaluator:
             self.metric.update_precomputed(
                 scores[i][cand], labels[i][cand], darea[i][cand], inter[i][cand][:, gv], gt_labels[i][gv], garea[i][gv]
             )
+        self._images += len(scores)
 
     def _update_device_stats(self, class_logits, mask_logits, batch, target_hw):
         b, t, gh, gw = np.shape(batch.mask_labels)
@@ -140,6 +154,7 @@ class Evaluator:
         (outs, done), gt_labels, gt_valid = self._pending.popleft()
         self.update_from_stats(self._materialize_stats(outs, done), gt_labels, gt_valid)
 
+    @span("eval.flush")
     def flush(self):
         """Drain every deferred device-stats update into the metric."""
         while self._pending:
@@ -149,8 +164,11 @@ class Evaluator:
         """Discard deferred updates and the accumulated metric state."""
         self._pending.clear()
         self.metric.reset()
+        self._images = 0
 
+    @span("eval.compute")
     def compute(self, prefix: str = "") -> dict[str, float]:
+        t0 = time.perf_counter()
         self.flush()
         out = self.metric.compute()
         metrics: dict[str, float] = {}
@@ -164,4 +182,7 @@ class Evaluator:
             metrics[f"{prefix}map_{name}"] = float(m)
             metrics[f"{prefix}mar_100_{name}"] = float(r)
         self.metric.reset()
+        MAP["compute_s"] += time.perf_counter() - t0
+        MAP["images"] += self._images
+        self._images = 0
         return metrics

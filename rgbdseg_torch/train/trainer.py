@@ -40,7 +40,9 @@ accumulation with the epoch's remainder applied on its own count, one
 `log_history` entry per epoch, eval and checkpoints per epoch, an exact
 resume (the model, the optimizer's moments and count, and the generator's
 state are checkpointed, `train/checkpoints.py`), `torch.profiler` traces of
-chosen steps, and HF-Trainer-compatible `trainer_state.json` and
+chosen steps (which carry the port's spans, `utils/trace.py`: the step's
+stages, the model's, the kernels' and the host's), and HF-Trainer-compatible
+`trainer_state.json` and
 `*_results.json`. `total_flos` counts each target bucket's first micro-step
 under torch's `FlopCounterMode` and adds the hand kernels' operations by their
 own formulas (`ops.kernels.FLOPS`), which the mode cannot see; it is not
@@ -98,6 +100,7 @@ from ..parallel.mesh import Mesh, active, barrier, data_sum, gather_rows, is_mai
 from ..parallel.multihost import host_row_range
 from ..parallel.sharding import full_state_dict, gather_shard, local_shard, shard_model
 from ..utils.hf_convert import graft
+from ..utils.trace import span
 from ..utils.weights import init_weights
 from ..versions import get as get_version
 from .arguments import TrainingArguments
@@ -178,6 +181,7 @@ def build_training(cfg: ModelConfig, args: TrainingArguments, num_examples: int,
     return model, make_optimizer(model, args, num_examples, mesh.data_width)
 
 
+@span("train.put_batch")
 def put_batch(batch: Batch, args: TrainingArguments, device=None) -> TrainBatch:
     """Host batch -> tensors on `device` (the CUDA device unless it names
     another; raises without CUDA), as the JAX `_put` does on one process:
@@ -193,8 +197,9 @@ def put_batch(batch: Batch, args: TrainingArguments, device=None) -> TrainBatch:
             mk, cl, vd = compact_targets(mk, cl, vd, args.instance_bucket_floor)
     if packed is not None:
         mk = packed
-    return TrainBatch(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                        for x in (batch.pixel_values, mk, cl, np.asarray(vd, bool))))
+    with span("upload"):
+        return TrainBatch(*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                            for x in (batch.pixel_values, mk, cl, np.asarray(vd, bool))))
 
 
 def _inputs(model, batch: TrainBatch, preprocess: Optional[PreprocessConfig]):
@@ -203,13 +208,15 @@ def _inputs(model, batch: TrainBatch, preprocess: Optional[PreprocessConfig]):
     dev = next(model.parameters()).device
     pix = batch.pixel_values.to(dev)
     if pix.dtype == torch.uint8:
-        pix = build_from_packed(get_version(model.cfg.version).map_fn, pix, preprocess or PreprocessConfig())
+        with span("channel_stack"):
+            pix = build_from_packed(get_version(model.cfg.version).map_fn, pix, preprocess or PreprocessConfig())
     masks = batch.mask_labels.to(dev)
     if masks.dtype == torch.uint8:
         masks = unpack_masks(masks, tuple(pix.shape[1:3]))
     return pix, masks, batch.class_labels.to(dev), batch.valid.to(dev)
 
 
+@span("forward")
 def forward(model, pixel_values: torch.Tensor, generator: Optional[torch.Generator] = None,
             bf16: bool = False) -> ModelOutputs:
     """The model's forward; with `bf16`, on a bfloat16 copy of its float32
@@ -217,12 +224,15 @@ def forward(model, pixel_values: torch.Tensor, generator: Optional[torch.Generat
     float32 masters), the outputs cast to float32."""
     if not bf16:
         return model(pixel_values, generator)
-    params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p for n, p in model.named_parameters()}
-    out = torch.func.functional_call(model, params, (pixel_values.to(torch.bfloat16), generator))
+    with span("forward.cast"):
+        params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p for n, p in model.named_parameters()}
+        pixel_values = pixel_values.to(torch.bfloat16)
+    out = torch.func.functional_call(model, params, (pixel_values, generator))
     return ModelOutputs(out.class_queries_logits.float(), out.masks_queries_logits.float(),
                         tuple(t.float() for t in out.aux_class_logits), tuple(t.float() for t in out.aux_mask_logits))
 
 
+@span("train.micro_step")
 def micro_step(model, optimizer: AdamW, batch: TrainBatch, generator: torch.Generator,
                preprocess: Optional[PreprocessConfig] = None, sync: bool = True):
     """Forward, loss and backward of one micro-batch; its gradients are added to
@@ -239,10 +249,12 @@ def micro_step(model, optimizer: AdamW, batch: TrainBatch, generator: torch.Gene
         outputs = forward(model, pix, generator, optimizer.args.bf16)
         loss, per_layer = mask2former_loss(net.cfg, outputs, masks, classes, valid, generator)
         # this rank's share of the global loss; DDP averages the gradients over the data width
-        (loss * mesh.data_width if mesh is not None and mesh.data_width > 1 else loss).backward()
+        with span("backward"):
+            (loss * mesh.data_width if mesh is not None and mesh.data_width > 1 else loss).backward()
         return data_sum(loss.detach()), {k: data_sum(v.detach()) for k, v in per_layer.items()}
 
 
+@span("apply_step")
 def apply_step(optimizer: AdamW, count: int) -> torch.Tensor:
     """One optimizer step on the gradients summed over `count` micro-batches:
     their exact mean (an epoch's remainder divides by its own count), then clip
@@ -256,6 +268,7 @@ def apply_step(optimizer: AdamW, count: int) -> torch.Tensor:
     return grad_norm
 
 
+@span("train.step")
 def train_step(model, optimizer: AdamW, batch: TrainBatch, generator: torch.Generator,
                preprocess: Optional[PreprocessConfig] = None):
     """Forward, loss, backward, clip and update on one batch. Returns (loss,
@@ -298,18 +311,21 @@ def _eval_outputs(model, batches: Iterable[Batch], preprocess, generator, bf16):
     model.eval()
     try:
         for batch in batches:
-            fed, rows = batch, batch.pixel_values.shape[0]
-            if mesh is not None:
-                batch = _pad_rows(batch, mesh.data_width)
-                fed = _rows(batch, *host_row_range(batch.pixel_values.shape[0], mesh))
-            arrays = (fed.pixel_values, fed.mask_labels_packed if fed.mask_labels_packed is not None
-                      else np.asarray(fed.mask_labels, np.float32), fed.class_labels, np.asarray(fed.valid, bool))
-            with active(mesh):
-                pix, masks, classes, valid = _inputs(
-                    model, TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)), preprocess)
-                out = forward(model, pix, bf16=bf16)
-                loss, _ = mask2former_loss(model.cfg, out, masks, classes, valid, generator)
-                loss = data_sum(loss)
+            with span("eval.batch"):
+                fed, rows = batch, batch.pixel_values.shape[0]
+                if mesh is not None:
+                    batch = _pad_rows(batch, mesh.data_width)
+                    fed = _rows(batch, *host_row_range(batch.pixel_values.shape[0], mesh))
+                arrays = (fed.pixel_values, fed.mask_labels_packed if fed.mask_labels_packed is not None
+                          else np.asarray(fed.mask_labels, np.float32), fed.class_labels, np.asarray(fed.valid, bool))
+                with active(mesh):
+                    with span("eval.inputs"):
+                        with span("upload"):
+                            uploaded = TrainBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays))
+                        pix, masks, classes, valid = _inputs(model, uploaded, preprocess)
+                    out = forward(model, pix, bf16=bf16)
+                    loss, _ = mask2former_loss(model.cfg, out, masks, classes, valid, generator)
+                    loss = data_sum(loss)
             yield batch, rows, out, loss
     finally:
         model.train(was_training)
