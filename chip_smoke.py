@@ -19,6 +19,14 @@ Phases, one line of numbers each; any failure raises and the exit code is not 0:
      the seeded model has them): all levels in one launch, as an encoder layer
      calls it, and each level alone through the per-level entry; uniform random
      coordinates, out of bounds too, are a correctness case only;
+  3c. E-DSAM's extract stage (the 3x3 conv from 128 to 256 channels,
+     BatchNorm, ReLU and the pool to 4x4 as one hand design) at 480x640: the
+     train route at batch 16 (three launches) and the eval route at batch 8
+     (one), against the plain version on the card (the cuDNN composition
+     the module ran before), running statistics too, two calls bit for bit; device ms
+     and each kernel's, the plain version's, the bare library calls' (the
+     yardstick), eager ms, and the bound (3xTF32 products on the tensor
+     cores, plus the train route's re-read of y);
   4. slice: the full-width 0.4.0 model (Swin-T, 6 deformable encoder layers,
      100 queries, 10 prediction points, 40 labels; seeded random weights)
      answers 3 requests through `Predictor.predict_pixels`, of 10-channel
@@ -222,7 +230,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 # K3 computes its float32 products on the tensor cores as three TF32 products
 # each (495 TFLOP/s dense TF32), so its float32 work runs at a third of that.
-F32_AS_3XTF32_FLOP_PER_S = 495e12 / 3
+TF32_FLOP_PER_S = 495e12  # dense TF32 on the tensor cores
+F32_AS_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 BF16_FLOP_PER_S = 989e12  # dense bfloat16 on the tensor cores
 K1_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 K3_TOL, K3_TOL_BF16 = 1e-5, 2e-2
@@ -284,11 +293,23 @@ BUILD_TOL = 1e-6
 # criterion's three point samplings per prediction layer, 10 layers, no
 # backward) and per train step or micro-step (the criterion's 30 forward and 10
 # backward point samplings).
+# E-DSAM's extract stage (0.4.0 alone): one launch per forward in eval mode,
+# three per train-mode forward (products, statistics, apply).
+EDSAM_SERVE = {"edsam_extract": 1, "edsam_extract_stats": 0, "edsam_extract_apply": 0}
+EDSAM_TRAIN = {"edsam_extract": 1, "edsam_extract_stats": 1, "edsam_extract_apply": 1}
+NO_EDSAM = dict.fromkeys(EDSAM_TRAIN, 0)
 SERVE_LAUNCHES = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 0, "masked_attention_bwd": 0,
-                  "point_sample": 0, "point_sample_bwd": 0}
+                  "point_sample": 0, "point_sample_bwd": 0, **EDSAM_SERVE}
 EVAL_LAUNCHES = dict(SERVE_LAUNCHES, point_sample=30)
 TRAIN_LAUNCHES = {"deformable": 6, "masked_attention": 9, "deformable_bwd": 6, "masked_attention_bwd": 9,
-                  "point_sample": 30, "point_sample_bwd": 10}
+                  "point_sample": 30, "point_sample_bwd": 10, **EDSAM_TRAIN}
+# E-DSAM's extract stage (phase 3c) against the plain version on the card,
+# relative to the plain version's largest |output| and each running
+# statistic's: both float32 (3xTF32 products and cuDNN's sums over K = 1152 in
+# other orders), a few ulps of the conv's output, scaled up by the
+# normalisation; the tests bound both against float64. Batch per route.
+EDSAM_RTOL = 1e-4
+EDSAM_B = {"train": 16, "eval": 8}
 # The point-sampling kernel against the plain version (F.grid_sample and aten's
 # backward on the card), relative to the largest |ref|: the forward repeats
 # aten's arithmetic (expected bit for bit); the backward sums each cell's <= 4
@@ -1119,6 +1140,107 @@ def check_bf16_kernels(rng, dev) -> list[dict]:
                (2 * (qb.numel() + kb.numel() + vb_.numel()) + 2 * qb.numel()) * 2 + m.numel() * 4
                + lse.numel() * 4 + ab.numel(), 10 * pairs, BF16_FLOP_PER_S)
     torch.cuda.synchronize()
+    return rows
+
+
+def edsam_stage(seed: int, dev, b: int, h: int = 480, w: int = 640):
+    """E-DSAM's extract stage at the model's widths: a non-negative input (B,
+    128, h, w) like the stage's (a ReLU output times a sigmoid gate), the 3x3
+    conv from 128 to 256 channels with torch's initialisation, and a
+    BatchNorm with seeded affine and running statistics."""
+    import torch
+
+    from rgbdseg_torch.models.layers import BatchNorm2d, Conv2d
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, 128, h, w, device=dev, generator=g).relu_() * torch.rand(b, 128, h, w, device=dev, generator=g)
+    torch.manual_seed(seed)
+    conv, bn = Conv2d(128, 256, 3, padding=1).to(dev), BatchNorm2d(256, eps=1e-5).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.1 * torch.randn(256, device=dev, generator=g))
+        bn.bias.copy_(0.1 * torch.randn(256, device=dev, generator=g))
+        bn.running_mean.copy_(0.1 * torch.randn(256, device=dev, generator=g))
+        bn.running_var.copy_(1 + torch.rand(256, device=dev, generator=g))
+    return x, conv, bn
+
+
+def check_edsam_extract(rng, dev) -> dict:
+    """Phase 3c: E-DSAM's extract stage (`ops/kernels/edsam_extract.py`) at
+    480x640 on the train route (batch 16, three launches) and the eval route
+    (batch 8, one launch): against the plain version on the card (cuDNN's conv
+    and BatchNorm, ReLU, the pool), the running
+    statistics too; a second call with the same bits; device ms of the kernels
+    (and each kernel's, from the profiler), of the plain version and of the
+    same composition as bare library calls; eager ms; the bound (3xTF32
+    operations on the tensor cores, plus the train route's re-read of y);
+    launches per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbdseg_torch.ops import kernels as K
+    from rgbdseg_torch.ops.kernels import edsam_extract as KE
+
+    rows = {"edsam_extract": []}
+    for mode, b in EDSAM_B.items():
+        training = mode == "train"
+        x, conv, bn = edsam_stage(int(rng.randint(2**31 - 1)), dev, b)
+        bn.train(training)
+        saved = {k: v.clone() for k, v in bn.state_dict().items()}
+
+        def restore():
+            bn.load_state_dict(saved)
+
+        def kernel():
+            return KE.edsam_extract(x, conv, bn)
+
+        def plain():
+            return KE.edsam_extract_plain(x, conv, bn)
+
+        def library():
+            y = F.batch_norm(F.conv2d(x, conv.weight, conv.bias, padding=1), bn.running_mean, bn.running_var,
+                             bn.weight, bn.bias, training, bn.momentum, bn.eps)
+            return F.adaptive_avg_pool2d(F.relu(y), (4, 4))
+
+        with torch.no_grad():
+            K.reset_launches()
+            got = kernel()
+            launches = {n: K.LAUNCHES[n] for n in EDSAM_TRAIN}
+            state = {k: v.clone() for k, v in bn.state_dict().items()}
+            restore()
+            again = kernel()
+            restore()
+            want = plain()
+            scale = want.abs().max()
+            err = _check(f"edsam_extract {mode} B={b} (relative)", got / scale, want / scale, EDSAM_RTOL)
+            stat_err = max(((state[k] - v).abs().max() / v.abs().max()).item()
+                           for k, v in bn.state_dict().items() if k.startswith("running_"))
+            if not stat_err <= EDSAM_RTOL or not torch.equal(state["num_batches_tracked"], bn.num_batches_tracked):
+                raise AssertionError(f"edsam_extract {mode}: running statistics {stat_err:.3g} > {EDSAM_RTOL}, or "
+                                     f"num_batches_tracked {state['num_batches_tracked']} against the plain "
+                                     f"version's {bn.num_batches_tracked}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"edsam_extract {mode}: two calls differ")
+            if launches != (EDSAM_TRAIN if training else EDSAM_SERVE):
+                raise AssertionError(f"edsam_extract {mode}: launches {launches}")
+            restore()
+            ms, split = time_ms(kernel, 5), kernel_split(kernel, 3)
+            row = dict(shape=f"{mode} B={b} 480x640", err=err, ms=ms, eager_ms=eager_ms(kernel, 5),
+                       plain_ms=time_ms(plain, 3), library_ms=time_ms(library, 3))
+            restore()
+        products = 2 * b * 480 * 640 * 256 * 128 * 9
+        nbytes = (x.numel() + b * 256 * 16) * 4 + (2 * b * 256 * 480 * 640 * 4 if training else 0)
+        # The tensor cores' 3xTF32 products, then (train) the apply pass's re-read of y.
+        bound = 3 * products / TF32_FLOP_PER_S * 1e3 + (b * 256 * 480 * 640 * 4 / HBM_BYTES_PER_S * 1e3 if training else 0)
+        row.update(bound_ms=bound, bound_by="operations", bytes=nbytes, flops=products,
+                   flop_rate=F32_AS_3XTF32_FLOP_PER_S)
+        rows["edsam_extract"].append(row)
+        log(f"kernel edsam_extract {row['shape']}: ms {ms:.4f} eager_ms {row['eager_ms']:.4f} plain_ms "
+            f"{row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} bound_ms {bound:.4f} (3 x {products / 1e12:.3f} "
+            f"TFLOP of TF32 products{' + y re-read' if training else ''}; {nbytes / 1e9:.2f} GB) share "
+            f"{bound / ms:.1%}; err {err:.2e}, running statistics {stat_err:.2e}; launches {launches}; "
+            f"split {_split_line(split)}")
+        del x, got, again, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2547,7 +2669,7 @@ def serve_version(seed: int, rng, version: str, cmp_hw) -> dict:
     for i, frames in enumerate(requests):
         K.reset_launches()
         res, t = _timed(lambda: pred.predict_example({"image": frames}, threshold=0.0))
-        _launch_check(f"versions {version} request {i}", SERVE_LAUNCHES)
+        _launch_check(f"versions {version} request {i}", dict(SERVE_LAUNCHES, **NO_EDSAM))
         ms.append(t)
     upload, launches = pred.last_upload_bytes, dict(K.LAUNCHES)
 
@@ -2680,7 +2802,7 @@ def train_version(seed: int, rng, version: str) -> None:
     grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
     bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
     norm, t_apply = _timed(lambda: apply_step(opt, 1))
-    _launch_check(f"versions {version} train step", TRAIN_LAUNCHES)
+    _launch_check(f"versions {version} train step", dict(TRAIN_LAUNCHES, **NO_EDSAM))
     loss, norm = loss.item(), norm.item()
     if bad or not (np.isfinite(loss) and np.isfinite(norm)):
         raise AssertionError(f"versions {version} train step: loss {loss}, norm {norm}, non-finite {bad[:5]}")
@@ -3710,6 +3832,7 @@ def main(argv=None) -> int:
     rows = check_kernels(rng, dev, point_rng)
     rows.update(check_backward_kernels(rng, dev, point_rng))
     check_bf16_kernels(rng, dev)
+    rows.update(check_edsam_extract(np.random.RandomState(args.seed + 2), dev))
     launches, pred = run_slice(args.seed, rng, args.profile)
     train_launches, step0, batch = run_train(args.seed, rng, args.profile)
     step0_gpu_vs_cpu(step0, batch)
@@ -3760,6 +3883,8 @@ def main(argv=None) -> int:
         "point_sample": ("rgbdseg_torch/csrc/point_sample.cu", "rgbdseg_tpu/ops/losses.py:72", "point_sample"),
         "point_sample_bwd": ("rgbdseg_torch/csrc/point_sample.cu", "rgbdseg_tpu/ops/losses.py:102",
                              "point_sample_bwd"),
+        # no Pallas kernel: E-DSAM's conv, BatchNorm, ReLU and pool, which the JAX package leaves to XLA
+        "edsam_extract": ("rgbdseg_torch/csrc/edsam_extract.cu", "rgbdseg_tpu/models/fusion.py", "edsam_extract"),
     }
     kernels = []
     for name, (source, replaces, key) in meta.items():

@@ -24,6 +24,10 @@ caller's generator.
 The convolutions that read the input stack (the predictors' first ones) take
 NCHW copies of their channels, as `SwinBackbone` does
 (`models/mask2former.py::standard_layout`).
+
+E-DSAM's full-resolution extract stage (`extract_conv0`, `extract_bn0`, ReLU,
+the pool to 4 x 4) is one hand design on a CUDA tensor
+(`ops/kernels/edsam_extract.py`) and that composition on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from torch import nn
 
 from ..ops.depth_decomp import dsam_region_masks, dsam_region_masks_pooled
 from ..ops.image import to_grayscale
-from ..ops.resize import adaptive_avg_pool2d, adaptive_max_pool2d, resize_bilinear, resize_nearest
+from ..ops.kernels.edsam_extract import edsam_extract
+from ..ops.resize import adaptive_max_pool2d, resize_bilinear, resize_nearest
 from .layers import BatchNorm2d, Conv2d, Linear, promote
 from .stochastic import Dropout
 
@@ -82,8 +87,7 @@ class EnhancedDepthImageRatioPredictor(nn.Module):
         x = F.relu(self.fusion_bn(self.fusion_conv(x)))
         a = torch.sigmoid(self.attn_conv1(F.relu(self.attn_conv0(x))))
         x = x * a
-        x = F.relu(self.extract_bn0(self.extract_conv0(x)))
-        x = _nchw(adaptive_avg_pool2d(_nhwc(x), (4, 4)))
+        x = edsam_extract(x, self.extract_conv0, self.extract_bn0)  # conv, BN, ReLU, pool to 4 x 4
         x = F.relu(self.extract_bn1(self.extract_conv1(x)))
         x = x.mean(dim=(2, 3))
         x = self.dropout0(F.relu(self.fc0(x)), generator)

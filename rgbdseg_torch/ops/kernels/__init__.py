@@ -3,17 +3,19 @@
 Each kernel lives in `rgbdseg_torch/csrc/<name>.cu` behind a plain C
 interface (helpers shared by several sources in `csrc/*.cuh`); an entry point
 may share another's source (`_SOURCES`: the point-sampling backward lives in
-`point_sample.cu`). At first use `load(name)` compiles the source with nvcc
+`point_sample.cu`, E-DSAM's statistics and apply kernels in
+`edsam_extract.cu`). At first use `load(name)` compiles the source with nvcc
 for `sm_90a` into a shared library under `<repo>/build/kernels/` (named by a
 hash of the source, the headers and the flags, so an edited source or header
 rebuilds) and binds it with ctypes. `build_all()` starts one nvcc per source,
 all together, and waits for them.
 
-The kernel modules (`deformable`, `masked_attention`, `point_sample`) each
-hold the plain PyTorch versions of their function and its gradient, the
-wrapper (a `torch.autograd.Function` whose forward and backward are kernels),
-and a source note. A wrapper takes the plain versions only for CPU tensors; for CUDA tensors
-it launches the kernel or raises. `LAUNCHES` counts kernel launches per entry
+The kernel modules (`deformable`, `masked_attention`, `point_sample`,
+`edsam_extract`) each hold the plain PyTorch versions of their function and
+its gradient, the wrapper (a `torch.autograd.Function` whose forward and
+backward are kernels; E-DSAM's extract stage has no gradient, and its backward
+raises), and a source note. A wrapper takes the plain versions only for CPU
+tensors; for CUDA tensors it launches the kernel or raises. `LAUNCHES` counts kernel launches per entry
 point, the backward ones (`*_bwd`) apart from the forward ones: a plain integer
 each, bumped only where the kernel is launched (once per call, also where one
 call is two launches, as K3's split and combine are). `FLOPS` sums, per
@@ -69,9 +71,19 @@ _SIGNATURES = {
     ),
     "point_sample": ("rgbd_point_sample", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "point_sample_bwd": ("rgbd_point_sample_bwd", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "edsam_extract": (
+        "rgbd_edsam_extract",
+        [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    ),
+    "edsam_extract_stats": ("rgbd_edsam_extract_stats", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "edsam_extract_apply": (
+        "rgbd_edsam_extract_apply",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    ),
 }
 # Entry point -> its source's stem, where that is not its own name.
-_SOURCES = {"point_sample_bwd": "point_sample"}
+_SOURCES = {"point_sample_bwd": "point_sample", "edsam_extract_stats": "edsam_extract",
+            "edsam_extract_apply": "edsam_extract"}
 
 LAUNCHES = counters("kernels.LAUNCHES", _SIGNATURES)
 FLOPS = counters("kernels.FLOPS", _SIGNATURES)

@@ -37,6 +37,7 @@ The spans, by layer (nested ones indented):
     eval.flush              Evaluator.flush
     eval.compute            Evaluator.compute (the mAP on the host)
     op.k1, op.k3, op.ps     each hand kernel wrapper's call
+    op.edsam_extract        E-DSAM's extract stage (inside model.fusion)
     op.k1_bwd, op.k3_bwd, op.ps_bwd   its backward, on the autograd thread
     host.gc                 a pass of Python's cyclic garbage collector
 

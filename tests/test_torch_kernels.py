@@ -244,7 +244,8 @@ def test_cuda_kernels_match_plain():
         )
     torch.cuda.synchronize()
     assert LAUNCHES == {"deformable": 5, "masked_attention": 6, "deformable_bwd": 0, "masked_attention_bwd": 0,
-                        "point_sample": 0, "point_sample_bwd": 0}
+                        "point_sample": 0, "point_sample_bwd": 0, "edsam_extract": 0, "edsam_extract_stats": 0,
+                        "edsam_extract_apply": 0}
 
 
 @pytest.mark.cuda

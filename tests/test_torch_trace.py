@@ -15,7 +15,7 @@ from rgbdseg_torch.config import ModelConfig, PreprocessConfig
 from rgbdseg_torch.data.pipeline import Batch
 from rgbdseg_torch.models.mask2former import Mask2FormerRGBD
 from rgbdseg_torch.ops import kernels
-from rgbdseg_torch.ops.kernels import deformable, masked_attention, point_sample
+from rgbdseg_torch.ops.kernels import deformable, edsam_extract, masked_attention, point_sample
 from rgbdseg_torch.train import evaluator as E
 from rgbdseg_torch.train import trainer as T
 from rgbdseg_torch.train.arguments import TrainingArguments
@@ -118,7 +118,7 @@ TRAIN_NESTING = [("upload", "train.put_batch"), ("train.micro_step", "train.step
                  ("model.decoder", "forward"), ("criterion", "train.micro_step"), ("matcher", "criterion"),
                  ("matcher.copy", "matcher"), ("matcher.solve", "matcher"), ("backward", "train.micro_step"),
                  ("op.k1", "model.pixel_decoder"), ("op.k3", "model.decoder"), ("op.ps", "criterion"),
-                 ("op.k1_bwd", "backward")]
+                 ("op.k1_bwd", "backward"), ("op.edsam_extract", "model.fusion")]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -127,7 +127,8 @@ def test_train_step_spans_and_nesting(setup, monkeypatch, bf16):
     calls = {"k1": _counting(monkeypatch, deformable, "deform_sample_levels_plain"),
              "k1_bwd": _counting(monkeypatch, deformable, "deform_sample_levels_plain_bwd"),
              "k3": _counting(monkeypatch, masked_attention, "masked_cross_attention_plain"),
-             "ps": _counting(monkeypatch, point_sample, "point_sample_plain")}
+             "ps": _counting(monkeypatch, point_sample, "point_sample_plain"),
+             "edsam_extract": _counting(monkeypatch, edsam_extract, "edsam_extract_plain")}
 
     def step():
         args = _args(bf16)
@@ -154,7 +155,8 @@ def test_evaluate_spans_and_nesting(setup, monkeypatch):
     model, batches = setup
     calls = {"k1": _counting(monkeypatch, deformable, "deform_sample_levels_plain"),
              "k3": _counting(monkeypatch, masked_attention, "masked_cross_attention_plain"),
-             "ps": _counting(monkeypatch, point_sample, "point_sample_plain")}
+             "ps": _counting(monkeypatch, point_sample, "point_sample_plain"),
+             "edsam_extract": _counting(monkeypatch, edsam_extract, "edsam_extract_plain")}
     _, spans = _profiled(lambda: _evaluate(model, batches))
     names = _names(spans)
     n = len(batches)
@@ -163,7 +165,8 @@ def test_evaluate_spans_and_nesting(setup, monkeypatch):
         assert names.count(name) == n, (name, names.count(name))
     assert names.count("eval.drain") == n and names.count("eval.compute") == 1 and names.count("eval.flush") >= 1
     for inner, outer in [("eval.inputs", "eval.batch"), ("upload", "eval.inputs"), ("channel_stack", "eval.inputs"),
-                         ("forward", "eval.batch"), ("criterion", "eval.batch"), ("model.fusion", "forward")]:
+                         ("forward", "eval.batch"), ("criterion", "eval.batch"), ("model.fusion", "forward"),
+                         ("op.edsam_extract", "model.fusion")]:
         assert _inside(spans, inner, outer), (inner, outer)
     drains = [s for s in spans if s[0] == "eval.drain"]
     around = [s for s in spans if s[0] in ("eval.update", "eval.flush")]
